@@ -1,0 +1,5 @@
+"""Public kernel wrappers (the API the rest of the port calls)."""
+
+from repro_torch.kernels.dispatch import status as kernel_status  # noqa: F401
+from repro_torch.kernels.mandelbrot import mandelbrot  # noqa: F401
+from repro_torch.kernels.spin_image import spin_image  # noqa: F401
