@@ -1,0 +1,67 @@
+"""Architecture registry + the assigned input-shape grid (data only).
+
+10 architectures x 4 shapes = 40 cells.  ``long_500k`` requires
+sub-quadratic attention => only rwkv6-1.6b and hymba-1.5b run it.
+A copy of ``repro.configs.registry`` without ``input_specs`` and
+``smoke_batch`` (ROADMAP.md queue A, item A7).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib
+
+from repro_torch.models.config import ModelConfig
+
+_MODULES = {
+    "deepseek-v3-671b": "deepseek_v3_671b",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+    "deepseek-coder-33b": "deepseek_coder_33b",
+    "qwen3-4b": "qwen3_4b",
+    "olmo-1b": "olmo_1b",
+    "qwen2-72b": "qwen2_72b",
+    "paligemma-3b": "paligemma_3b",
+    "whisper-tiny": "whisper_tiny",
+    "rwkv6-1.6b": "rwkv6_1b6",
+    "hymba-1.5b": "hymba_1b5",
+}
+ARCH_IDS = tuple(_MODULES)
+
+
+def _module(arch: str):
+    if arch not in _MODULES:
+        raise ValueError(f"unknown arch {arch!r}; choose from {ARCH_IDS}")
+    return importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
+
+
+def get_config(arch: str) -> ModelConfig:
+    return _module(arch).CONFIG
+
+
+def get_smoke(arch: str) -> ModelConfig:
+    return _module(arch).SMOKE
+
+
+# ------------------------------------------------------------------ shapes
+@dataclasses.dataclass(frozen=True)
+class Shape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str            # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": Shape("train_4k", 4096, 256, "train"),
+    "prefill_32k": Shape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": Shape("decode_32k", 32768, 128, "decode"),
+    "long_500k": Shape("long_500k", 524288, 1, "decode"),
+}
+
+
+def applicable_shapes(cfg: ModelConfig) -> list[str]:
+    """long_500k only for sub-quadratic archs (others: N/A-by-design)."""
+    names = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.subquadratic:
+        names.append("long_500k")
+    return names

@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels for Hopper (sources in ``../csrc``).
 
-mandelbrot   escape-time iteration (the paper's high-variance app)
-spin_image   PSIA spin-image histograms in shared memory
+mandelbrot        escape-time iteration (the paper's high-variance app)
+spin_image        PSIA spin-image histograms in shared memory
+flash_attention   single-query attention over a KV cache (flash_decode)
+rwkv6_scan        WKV6 recurrence: one decode step, chunked prefill
 
 Each kernel module holds the wrapper that launches the kernel on CUDA
 tensors, and its plain PyTorch version, which CPU tensors take;

@@ -5,10 +5,12 @@ liveness, barrier polling, hang surfacing, metrics.  A backend only
 defines what a chunk of tasks IS:
 
   * :class:`FnBackend`      — run a Python callable per task (parity tests,
-                              run_to_completion-style draining of real work).
+                              run_to_completion-style draining of real work);
+  * :class:`ServeBackend`   — inference requests, decoded per-request or as
+                              padded batches, first-completion-wins.
 
-``TrainBackend`` and ``ServeBackend`` of ``repro.runtime.backends`` come
-with the training and serving slices of the port (ROADMAP.md queue A).
+``TrainBackend`` of ``repro.runtime.backends`` comes with the training
+slice of the port (ROADMAP.md queue A, item A5).
 
 Backends never talk to the queue; ``commit`` receives the task ids its
 report newly finished, so a duplicate's payload is applied only for tasks
@@ -55,3 +57,29 @@ class FnBackend(WorkerBackend):
             return
         for t in newly:
             self.results[t] = payload[t]
+
+
+class ServeBackend(WorkerBackend):
+    """Inference requests; first-completion-wins output commit.
+
+    ``generate_fn(requests) -> {rid: tokens}`` decodes a chunk's requests
+    (per-request loop or one padded batch — the engine doesn't care).
+    Greedy decode is deterministic, so duplicates are interchangeable and
+    whichever report lands first fixes the output.
+    """
+
+    def __init__(self, requests: Sequence,
+                 generate_fn: Callable[[list], dict]) -> None:
+        self.requests = requests
+        self.generate_fn = generate_fn
+
+    def execute(self, chunk: Chunk, wid: int) -> Any:
+        return self.generate_fn([self.requests[r] for r in chunk.tasks()])
+
+    def commit(self, chunk: Chunk, wid: int, payload: Any,
+               newly: list[int]) -> None:
+        for rid in newly:
+            req = self.requests[rid]
+            req.output = payload[rid]
+            req.completed_by = wid
+            req.duplicated = chunk.duplicate

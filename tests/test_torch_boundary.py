@@ -45,11 +45,22 @@ def test_default_device_raises_without_gpu():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is usable")
     from repro_torch.apps import mandelbrot, psia
+    from repro_torch.configs import get_smoke
     from repro_torch.device import resolve
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
     with pytest.raises(RuntimeError, match="no GPU"):
         mandelbrot.compute_tile(0)
     with pytest.raises(RuntimeError, match="no GPU"):
         psia.compute_tasks([0], n=8, cloud_n=16)
+    for arch in ("olmo-1b", "rwkv6-1.6b"):
+        model = build_model(get_smoke(arch))
+        with pytest.raises(RuntimeError, match="no GPU"):
+            model.init(0)
+        with pytest.raises(RuntimeError, match="no GPU"):
+            model.init_cache(1, 4)
+        with pytest.raises(RuntimeError, match="no GPU"):
+            serve.main(["--arch", arch, "--smoke"])
     with pytest.raises(RuntimeError, match="no GPU"):
         resolve()
     assert resolve("cpu") == torch.device("cpu")
