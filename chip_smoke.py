@@ -41,7 +41,21 @@ Phases, each fatal when it fails:
      S = 64, 64 new tokens, and one profiled call of 8 new tokens for the
      kernels per token position, the device's busy share and the ops
      that take the most host time;
-  5. print one JSON line with each kernel's launches, error, times and
+  5. training: flash_attention (output and log-sum-exp) against its plain
+     version at olmo-1b's training shape (16 heads, S = 2048, D = 128,
+     bfloat16, causal), a ragged GQA shape (8 heads over 2, S = 1000,
+     float32 and bfloat16), a non-causal and a Dv != D shape, and the
+     gradients through FlashAttentionFn against autograd through the plain
+     version, then timed like the others, with SDPA as its library call;
+     rDLB training of olmo-1b at full width in bfloat16 (global batch
+     8 x 2048 tokens, 8 tasks, P = 4 threads, FAC, adamw, exact
+     accumulation, 3 steps), once failure-free and once with worker 1
+     fail-stopping during step 1: the parameters after every step must be
+     equal bit for bit, the losses finite, and flash_attention must have
+     launched on the path; a float32 copy cut to 2 layers gives loss and
+     gradients through the kernel within a stated tolerance of the plain
+     path's, both on the card;
+  6. print one JSON line with each kernel's launches, error, times and
      bound, then the result line.
 
 Exits non-zero, printing no result, when no GPU is present or when the
@@ -62,6 +76,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM published peaks (NVIDIA data sheet): FP32 outside the tensor
 # cores, and HBM3 bandwidth.
 PEAK_FP32 = 67e12
+PEAK_BF16 = 989e12          # dense tensor-core rate
 PEAK_BYTES = 3.35e12
 # FP32 operations per Mandelbrot iteration (3 mul, 3 add/sub, 1 compare,
 # 1 FMA counted as 2) and per spin-image point-center pair (3 sub,
@@ -158,16 +173,26 @@ def trace_ms(fn, kernel: str, reps: int) -> float | None:
         torch.cuda.synchronize()
     for ev in prof.key_averages():
         if kernel in ev.key and ev.count:
-            us = getattr(ev, "self_device_time_total", None)
-            if us is None:
-                us = getattr(ev, "self_cuda_time_total", 0)
+            us = device_us(ev)
             return us / ev.count / 1e3 if us else None
     return None
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def device_events(prof) -> list:
+    """The profiler's per-kernel averages that ran on the card."""
+    return [e for e in prof.key_averages() if e.count and
+            str(getattr(e, "device_type", "")).endswith("CUDA")]
+
+
+def device_us(e) -> float:
+    return (getattr(e, "self_device_time_total", 0)
+            or getattr(e, "self_cuda_time_total", 0))
+
+
+def bound_ms(n_bytes: float, n_ops: float,
+             peak: float = PEAK_FP32) -> tuple[float, str]:
     t_bytes = n_bytes / PEAK_BYTES * 1e3
-    t_ops = n_ops / PEAK_FP32 * 1e3
+    t_ops = n_ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -602,6 +627,7 @@ def plain_versions():
         return fn
 
     swap = {"flash_decode_gqa": kf.flash_decode_gqa_plain,
+            "flash_attention_gqa": kf.flash_attention_gqa_plain,
             "wkv6_decode": with_out(kw.wkv6_decode_plain),
             "wkv6_batched": with_out(kw.wkv6_batched_plain)}
     saved = {name: getattr(ops, name) for name in swap}
@@ -673,12 +699,9 @@ def decode_throughput(model, params) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         gen(params, prompts, PROFILED_NEW)
         torch.cuda.synchronize()
-    events = prof.key_averages()
-    kernels = [e for e in events if e.count and
-               str(getattr(e, "device_type", "")).endswith("CUDA")]
-    busy_us = sum(getattr(e, "self_device_time_total", 0)
-                  or getattr(e, "self_cuda_time_total", 0) for e in kernels)
-    host = sorted(events, key=lambda e: e.self_cpu_time_total,
+    kernels = device_events(prof)
+    busy_us = sum(device_us(e) for e in kernels)
+    host = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total,
                   reverse=True)[:5]
     return dict(B=B, S=S, new=new, wall_s=times[new],
                 prefill_s=times[1], tok_s=B * new / times[new],
@@ -691,7 +714,7 @@ def decode_throughput(model, params) -> dict:
                               for e in host])
 
 
-SERVE_SITES = {"olmo-1b": ("flash_decode",),
+SERVE_SITES = {"olmo-1b": ("flash_decode", "flash_attention"),
                "rwkv6-1.6b": ("wkv6_decode", "wkv6_batched")}
 
 
@@ -751,6 +774,322 @@ def drive_serving(dev, arch: str) -> dict:
           f"tokens {same}")
     return {site: launches[site] for site in SERVE_SITES[arch]}
 
+# ------------------------------------------------------------ phase 5
+# olmo-1b training: global batch TRAIN_BATCH x TRAIN_SEQ tokens (its
+# published context), TRAIN_TASKS microbatches over TRAIN_WORKERS threads,
+# TRAIN_STEPS steps; worker 1 fail-stops during step 1 of the second run.
+TRAIN_ARCH = "olmo-1b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_TASKS = 8, 2048, 8
+TRAIN_WORKERS, TRAIN_STEPS, TRAIN_FAIL_STEP = 4, 3, 1
+# The float32 check copy: 2 layers, full width, one row of a ragged S.
+CHECK_SEQ = 1000
+# Gradient tolerances, relative to each gradient's largest magnitude:
+# float32 both ways (kernel + FlashAttentionFn's backward vs. the plain
+# ops under autograd, which sum in other orders) 1e-5 for one attention
+# call and 1e-4 through two layers of the model; bfloat16 gradients
+# within 2**-6 of it (each holds 8 significant bits and the two sides
+# round differently).
+GRAD_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -6, "model": 1e-4}
+
+
+def attention_ops(B: int, H: int, S: int, D: int, Dv: int,
+                  causal: bool) -> float:
+    """Matrix-product FLOPs of attention over the (query, key) pairs it
+    computes: 2 D for the score, 2 Dv for P V."""
+    pairs = S * (S + 1) // 2 if causal else S * S
+    return B * H * pairs * (2 * D + 2 * Dv)
+
+
+def compare_attention_kernel(dev) -> dict:
+    """flash_attention against its plain version on ``dev`` (output, lse
+    and gradients), at olmo-1b's training shape and at ragged, GQA,
+    non-causal and Dv != D shapes; then timed at the training shape."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as kf
+
+    gen = torch.Generator().manual_seed(3)
+    olmo = get_config(TRAIN_ARCH)
+    H, D = olmo.n_heads, olmo.head_dim
+    cases = [  # (label, B, S, H, KV, D, Dv, causal, dtype)
+        ("olmo-1b training", 1, TRAIN_SEQ, H, olmo.n_kv_heads, D, D, True,
+         torch.bfloat16),
+        ("ragged gqa", 2, 1000, 8, 2, 128, 128, True, torch.float32),
+        ("ragged gqa", 2, 1000, 8, 2, 128, 128, True, torch.bfloat16),
+        ("non-causal", 2, 300, 4, 4, 64, 64, False, torch.float32),
+        ("dv != d", 1, 257, 4, 1, 192, 128, True, torch.float32),
+        ("dims 256", 1, 130, 2, 2, 256, 256, True, torch.bfloat16),
+    ]
+    err = 0.0
+    for label, B, S, Hh, KV, Dq, Dv, causal, dtype in cases:
+        q = torch.randn((B, S, Hh, Dq), generator=gen).to(dev, dtype)
+        k = torch.randn((B, S, KV, Dq), generator=gen).to(dev, dtype)
+        v = torch.randn((B, S, KV, Dv), generator=gen).to(dev, dtype)
+        out, lse = kf.flash_attention_forward(q, k, v, causal=causal)
+        pout, plse = kf.flash_attention_forward_plain(q, k, v,
+                                                      causal=causal)
+        torch.cuda.synchronize()
+        d_out = (out.float() - pout.float()).abs()
+        d_lse = (lse - plse).abs()
+        # float32 within 1e-5; bfloat16 within one rounding of the output
+        atol, rtol = (1e-5, 0.0) if dtype == torch.float32 else (
+            1e-4, 2.0 ** -7)
+        ok_out = bool((d_out <= atol + rtol * pout.float().abs()).all())
+        ok_lse = bool((d_lse <= 1e-5 + 1e-6 * plse.abs()).all())
+        e = float(d_out.max())
+        print(f"compare,flash_attention,{label},B={B},S={S},H={Hh},"
+              f"KV={KV},D={Dq},Dv={Dv},causal={causal},{dtype},"
+              f"max_abs_err={e},tolerance={atol}+{rtol}*|plain|,"
+              f"lse_max_abs_err={float(d_lse.max())},"
+              f"lse_tolerance=1e-05+1e-06*|plain|")
+        if not (ok_out and ok_lse):
+            fail(f"flash_attention ({label}, {dtype}) differs from its "
+                 f"plain version: output {e}, lse {float(d_lse.max())}")
+        err = max(err, e)
+        if label in ("olmo-1b training", "ragged gqa"):
+            check_attention_grads(kf, q, k, v, causal, label, dtype, gen)
+    # timed: olmo-1b's training shape, one microbatch row
+    B, S, KV = 1, TRAIN_SEQ, olmo.n_kv_heads
+    q = torch.randn((B, S, H, D), generator=gen).to(dev, torch.bfloat16)
+    k = torch.randn((B, S, KV, D), generator=gen).to(dev, torch.bfloat16)
+    v = torch.randn((B, S, KV, D), generator=gen).to(dev, torch.bfloat16)
+    n_bytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel()) \
+        + 4 * B * H * S
+    ops = attention_ops(B, H, S, D, D, True)
+    b, by = bound_ms(n_bytes, ops, peak=PEAK_BF16)
+    # bound_ms is held to the bf16 tensor-core peak; the same work at the
+    # FP32 peak (where this kernel's products run) is printed beside it
+    # and is not a bound of the kernel.
+    b32, _ = bound_ms(n_bytes, ops, peak=PEAK_FP32)
+    print(f"bound,flash_attention,gflop={ops / 1e9},bytes={n_bytes},"
+          f"bound_ms={b} (bf16 tensor cores 989 TFLOP/s),"
+          f"same work at the FP32 peak 67 TFLOP/s={b32} ms")
+    rows = {}
+    _report(rows, "flash_attention",
+            source="src/repro_torch/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:145",
+            shape=f"q,k,v ({B},{S},{H},{D}) bf16, causal, with lse",
+            max_abs_err=err, bound_ms=b, bound_by=by)
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library = lambda: sdpa(qh, kh, vh, is_causal=True)  # noqa: E731
+    _time(rows, "flash_attention",
+          lambda: kf.flash_attention_forward(q, k, v, causal=True),
+          lambda: kf.flash_attention_forward_plain(q, k, v, causal=True),
+          "flash_attention_kernel", 20, library=library)
+    rows["flash_attention"]["library"] = sdpa_backend(library)
+    return rows
+
+
+def check_attention_grads(kf, q, k, v, causal, label, dtype, gen) -> None:
+    """Gradients of sum(out * dout) through FlashAttentionFn (kernel
+    forward) against autograd through the plain version's ops."""
+    import torch
+    dout = torch.randn(q.shape[:3] + v.shape[-1:], generator=gen).to(
+        q.device, dtype)
+    grads = []
+    for fn in (kf.flash_attention_gqa, kf.flash_attention_gqa_plain):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*leaves, causal=causal)
+        grads.append(torch.autograd.grad(out, leaves, dout))
+    torch.cuda.synchronize()
+    tol = GRAD_TOL["float32" if dtype == torch.float32 else "bfloat16"]
+    worst = 0.0
+    for name, g, w in zip("qkv", *grads):
+        rel = float((g.float() - w.float()).abs().max()
+                    / w.float().abs().max())
+        worst = max(worst, rel)
+        if not rel <= tol:
+            fail(f"flash_attention d{name} ({label}, {dtype}) differs from "
+                 f"autograd through the plain version by {rel} of its "
+                 f"largest magnitude (tolerance {tol})")
+    print(f"compare,flash_attention_grad,{label},{dtype},"
+          f"max_rel_err={worst},tolerance={tol}")
+
+
+def sdpa_backend(library) -> str:
+    """Names of the CUDA kernels one SDPA call launched (the backend that
+    ran), from a profiler trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        library()
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in device_events(prof)})
+    return "; ".join(n[:100] for n in names) or "unknown"
+
+
+def profile_train_task(model, params) -> None:
+    """One training task (forward and backward of one 2048-token row,
+    as a worker runs it) timed alone and then traced: its wall time, the
+    device's busy time and share, kernels launched, and the kernels that
+    take the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data import as_tensors, batch_for_step
+    from repro_torch.runtime.executor import value_and_grad
+    batch = as_tensors(batch_for_step(model.cfg, 0, 1, TRAIN_SEQ),
+                       params["embed"].device)
+    fn = lambda p, b: model.loss(p, b)[0]  # noqa: E731
+    value_and_grad(fn, params, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    value_and_grad(fn, params, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        value_and_grad(fn, params, batch)
+        torch.cuda.synchronize()
+    kernels = device_events(prof)
+    busy = sum(device_us(e) for e in kernels) / 1e6
+    top = [(e.key[:60], e.count, round(device_us(e) / 1e3, 3),
+            round(device_us(e) / 1e6 / busy, 3))
+           for e in sorted(kernels, key=device_us, reverse=True)[:6]]
+    print(f"train,{TRAIN_ARCH},profiled task (1 x {TRAIN_SEQ} tokens, "
+          f"forward and backward): wall_s={wall:.4f},device_busy_s="
+          f"{busy:.4f},busy_share={busy / wall:.3f},kernels="
+          f"{sum(e.count for e in kernels)},top device kernels (name, "
+          f"calls, ms, share of busy)={top}")
+
+
+def params_on_host(params) -> list:
+    from repro_torch.models.common import tree_leaves
+    return [t.detach().to("cpu") for t in tree_leaves(params)]
+
+
+def run_training(model, params, *, failing: bool, reference=None):
+    """TRAIN_STEPS threaded rDLB steps from ``params``.  With
+    ``failing``, worker 1 fail-stops during step TRAIN_FAIL_STEP, at its
+    first assignment there, holding that chunk.  Returns (per-step host
+    copies of the parameters, per-step records); with ``reference`` (a
+    failure-free run's copies) each step's parameters must equal it bit
+    for bit."""
+    import math
+    import torch
+    from repro_torch import api
+    from repro_torch.data import batch_for_step
+    from repro_torch.kernels import dispatch
+    from repro_torch.runtime import RDLBTrainExecutor
+    from repro_torch.runtime.elastic import shrink_to_survivors
+    spec = api.train_spec(technique="FAC", n_workers=TRAIN_WORKERS,
+                          n_tasks=TRAIN_TASKS, threaded=True)
+    ex = RDLBTrainExecutor(model, spec=spec, optimizer="adamw", lr=1e-4,
+                           exact_accumulation=True)
+    opt_state = ex.opt.init(params)
+    snaps, records = [], []
+    for step in range(TRAIN_STEPS):
+        batch = batch_for_step(model.cfg, step, TRAIN_BATCH, TRAIN_SEQ)
+        if failing and step == TRAIN_FAIL_STEP:
+            w = ex.workers[1]
+            w.fail_after_tasks = w.tasks_done
+        before = dispatch.launches("flash_attention")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = ex.train_step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if res.hung or not math.isfinite(res.loss):
+            fail(f"training step {step} (failing={failing}): hung="
+                 f"{res.hung}, loss={res.loss}")
+        params, opt_state = res.params, res.opt_state
+        rec = dict(step=step, loss=res.loss, seconds=dt,
+                   tokens_s=TRAIN_BATCH * TRAIN_SEQ / dt,
+                   n_duplicates=res.n_duplicates, wasted=res.wasted_tasks,
+                   by_worker=res.tasks_by_worker, survivors=res.survivors,
+                   flash_attention_launches=dispatch.launches(
+                       "flash_attention") - before)
+        records.append(rec)
+        snap = params_on_host(params)
+        if reference is not None:
+            bad = sum(not torch.equal(a, b)
+                      for a, b in zip(snap, reference[step]))
+            if bad:
+                fail(f"training step {step}: {bad} parameter tensors under "
+                     f"the fail-stop differ from the failure-free run's")
+            rec["bit_identical"] = True
+        snaps.append(snap)
+        shrink_to_survivors(ex)
+    return snaps, records
+
+
+def drive_training(dev) -> int:
+    """Phase 5's training runs; returns flash_attention's launches in the
+    fail-stop run (counts set to 0 just before it, read just after)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import build_model
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg)
+    params = model.init(0, device=dev)
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"train,{TRAIN_ARCH},params={n_params},{cfg.dtype},"
+          f"global_batch={TRAIN_BATCH}x{TRAIN_SEQ},tasks={TRAIN_TASKS},"
+          f"workers={TRAIN_WORKERS},technique=FAC,optimizer=adamw,"
+          f"steps={TRAIN_STEPS}")
+    torch.cuda.reset_peak_memory_stats()
+    calm, calm_rec = run_training(model, params, failing=False)
+    for r in calm_rec:
+        print(f"train,{TRAIN_ARCH},failure-free,{json.dumps(r)}")
+    dispatch.reset_launches()
+    _, rec = run_training(model, params, failing=True, reference=calm)
+    launches = dispatch.launches()
+    status = dispatch.status("flash_attention")
+    for r in rec:
+        print(f"train,{TRAIN_ARCH},fail-stop,{json.dumps(r)}")
+    print(f"launches on the {TRAIN_ARCH} training path: {launches}")
+    if launches.get("flash_attention", 0) <= 0 or status.get("path") != (
+            "cuda"):
+        fail(f"flash_attention was not launched on the training path "
+             f"({launches}, {status})")
+    if (rec[TRAIN_FAIL_STEP]["n_duplicates"] < 1
+            or 1 in rec[TRAIN_FAIL_STEP]["survivors"]):
+        fail("the fail-stop training run lost no worker or issued no "
+             "rDLB duplicate")
+    print(f"train,{TRAIN_ARCH}: parameters after every step under the "
+          f"fail-stop equal the failure-free run's bit for bit; "
+          f"max_memory_allocated_GB="
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+    profile_train_task(model, params)
+    del model, params, calm
+    torch.cuda.empty_cache()
+    return launches["flash_attention"]
+
+
+def check_train_float32(dev) -> None:
+    """A float32 copy of olmo-1b cut to 2 layers (full width): loss and
+    gradients through the kernel against the plain path, both on the
+    card."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import as_tensors, batch_for_step
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.runtime.executor import value_and_grad
+    cfg = get_config(TRAIN_ARCH).replace(n_layers=2, dtype="float32")
+    model = build_model(cfg)
+    params = model.init(1, device=dev)
+    batch = as_tensors(batch_for_step(cfg, 0, 1, CHECK_SEQ), dev)
+    loss_fn = lambda p, b: model.loss(p, b)[0]  # noqa: E731
+    loss, grads = value_and_grad(loss_fn, params, batch)
+    with plain_versions():
+        ploss, pgrads = value_and_grad(loss_fn, params, batch)
+    torch.cuda.synchronize()
+    dl = abs(float(loss) - float(ploss)) / abs(float(ploss))
+    worst = max(float((g - w).abs().max() / w.abs().max())
+                for g, w in zip(tree_leaves(grads), tree_leaves(pgrads)))
+    print(f"check,{TRAIN_ARCH},float32 2 layers,S={CHECK_SEQ}: loss "
+          f"{float(loss)} vs plain {float(ploss)} (rel {dl}), gradients "
+          f"max_rel_err={worst},tolerance={GRAD_TOL['model']}")
+    if not (dl <= 1e-5 and worst <= GRAD_TOL["model"]):
+        fail("float32 2-layer loss or gradients through the kernel differ "
+             "from the plain path's")
+    del model, params, grads, pgrads
+    torch.cuda.empty_cache()
+
+
 
 def main() -> int:
     import torch
@@ -785,6 +1124,7 @@ def main() -> int:
     # phase 2: kernels against their plain versions
     rows = compare_kernels(dev)
     rows.update(compare_decode_kernels(dev))
+    rows.update(compare_attention_kernel(dev))
 
     # phase 3: rDLB end to end, with a real fail-stop
     run = drive_main_path(dev)
@@ -813,7 +1153,11 @@ def main() -> int:
         for site, n in drive_serving(dev, arch).items():
             rows[site]["launches"] = n
 
-    # phase 5: report
+    # phase 5: training, with its own launch counts
+    rows["flash_attention"]["launches"] = drive_training(dev)
+    check_train_float32(dev)
+
+    # phase 6: report
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

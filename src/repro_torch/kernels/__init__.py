@@ -2,7 +2,9 @@
 
 mandelbrot        escape-time iteration (the paper's high-variance app)
 spin_image        PSIA spin-image histograms in shared memory
-flash_attention   single-query attention over a KV cache (flash_decode)
+flash_attention   single-query attention over a KV cache (flash_decode),
+                  full-sequence attention with its log-sum-exp
+                  (flash_attention; backward in PyTorch ops)
 rwkv6_scan        WKV6 recurrence: one decode step, chunked prefill
 
 Each kernel module holds the wrapper that launches the kernel on CUDA

@@ -1,9 +1,10 @@
-"""Single-query (decode) attention over a KV cache: the hand-written CUDA
-kernel (``csrc/flash_decode.cu``) and its plain PyTorch version.
+"""Attention kernels: single-query decode over a KV cache
+(``csrc/flash_decode.cu``) and full-sequence attention for training and
+prefill (``csrc/flash_attention.cu``), each a hand-written CUDA kernel
+beside its plain PyTorch version, as ``repro.kernels.flash_attention``
+keeps ``flash_decode`` and ``flash_attention`` (Pallas TPU kernels).
 
-Counterpart of ``repro.kernels.flash_attention.flash_decode`` (a Pallas
-TPU kernel, body ``_decode_kernel``).  Two entry points share the one
-kernel and its launch count (site ``flash_decode``):
+Decode (site ``flash_decode``; body ``_decode_kernel`` in the reference):
 
   * :func:`flash_decode` takes the reference's folded layout, q (B, D)
     against k (B, L, D) and v (B, L, Dv);
@@ -12,13 +13,31 @@ kernel and its launch count (site ``flash_decode``):
     h reading KV head h // (H // KV): no repeat and no transpose of the
     cache (the reference folds both, ``attention.py:283-285``).
 
-Both take a shared (L,) validity mask (bool or int, nonzero = the slot
-takes part), accumulate in float32 and return q's dtype.  Masked slots
-contribute nothing; a row without a valid slot returns zeros, as the TPU
-kernel's re-zeroed probabilities give.  Any L is taken: the reference's
-caller gates on ``L % min(128, L) == 0`` (a TPU block constraint), the
-port does not.  ``flash_attention`` (the full-sequence kernel) is not
-ported yet: ROADMAP.md queue B, item B6.
+  Both take a shared (L,) validity mask (bool or int, nonzero = the slot
+  takes part), accumulate in float32 and return q's dtype.  Masked slots
+  contribute nothing; a row without a valid slot returns zeros, as the
+  TPU kernel's re-zeroed probabilities give.  Any L is taken: the
+  reference's caller gates on ``L % min(128, L) == 0`` (a TPU block
+  constraint), the port does not.
+
+Full sequence (site ``flash_attention``; body ``_kernel``):
+
+  * :func:`flash_attention_forward` returns the output and each row's
+    float32 log-sum-exp, in the model's layout q (B, S, H, D),
+    k (B, S, KV, D), v (B, S, KV, Dv) -> (B, S, H, Dv) and (B, H, S),
+    read through strides with the head map h -> h // (H // KV);
+  * :class:`FlashAttentionFn` makes it differentiable: the forward is
+    the kernel (CUDA) or the plain version (CPU), the backward
+    :func:`flash_attention_backward` is PyTorch ops on both devices (the
+    JAX package differentiates attention with XLA's autodiff, outside any
+    Pallas kernel);
+  * :func:`flash_attention_gqa` is that function on the model's layout,
+    :func:`flash_attention` on the reference's per-head (B, S, D) one.
+
+  Causal or not, any S (the reference asserts ``S % bq == 0``, a TPU
+  block constraint), head dims up to 256 with Dv free to differ from D.
+  Scores and sums are float32 (float64 for float64 inputs on the CPU);
+  the output has q's dtype.
 """
 
 from __future__ import annotations
@@ -31,6 +50,7 @@ import torch
 from repro_torch.kernels import _build, dispatch
 
 SITE = "flash_decode"
+SITE_ATTN = "flash_attention"
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 MAX_DIM = 256                                # largest D and Dv the kernel takes
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -38,6 +58,13 @@ _ARGTYPES = ([ctypes.c_void_p] * 5
              + [ctypes.c_int] * 7
              + [ctypes.c_longlong] * 6
              + [ctypes.c_float, ctypes.c_void_p])
+_ATTN_ARGTYPES = ([ctypes.c_void_p] * 5
+                  + [ctypes.c_int] * 8
+                  + [ctypes.c_longlong] * 9
+                  + [ctypes.c_float, ctypes.c_void_p])
+#: query rows per tile of the blocked backward: its score-sized
+#: intermediates hold (H, BWD_TILE, S) floats per batch row
+BWD_TILE = 512
 
 
 def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -180,3 +207,240 @@ def flash_decode_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _launch(q, k, v, valid, out.view(B * H, -1), n_heads=H, group=H // kv,
             strides_k=sk[:3], strides_v=sv[:3], scale=scale)
     return out
+
+
+# ============================================================ full sequence
+def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
+    """float64 stays float64 (gradient checks on the CPU); everything
+    else computes in float32, as the kernel does."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def _by_group(t: torch.Tensor, kv: int, dtype: torch.dtype) -> torch.Tensor:
+    """(B, S, H, X) -> (B, KV, g, S, X) in ``dtype``, g = H // KV: query
+    heads j g .. j g + g - 1 share KV head j."""
+    B, S, H, X = t.shape
+    return t.to(dtype).reshape(B, S, kv, H // kv, X).permute(0, 2, 3, 1, 4)
+
+
+def _ungroup(t: torch.Tensor) -> torch.Tensor:
+    """(B, KV, g, S, X) -> (B, S, KV * g, X)."""
+    B, kv, g, S, X = t.shape
+    return t.permute(0, 3, 1, 2, 4).reshape(B, S, kv * g, X)
+
+
+def _causal_keep(sq: int, sk: int, *, offset: int = 0,
+                device=None) -> torch.Tensor:
+    """(sq, sk) bool: query row i (absolute position i + offset) may see
+    key j <= i + offset."""
+    rows = torch.arange(sq, device=device)[:, None] + offset
+    return rows >= torch.arange(sk, device=device)[None, :]
+
+
+def flash_attention_forward_plain(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, *, causal: bool = True,
+                                  scale: Optional[float] = None):
+    """Plain PyTorch version of :func:`flash_attention_forward`:
+    q (B, S, H, D), k (B, S, KV, D), v (B, S, KV, Dv) -> (out
+    (B, S, H, Dv) in q's dtype, lse (B, H, S)), scores and sums in float32
+    (float64 for float64 inputs), the probabilities normalised after P·V
+    as the kernel's online softmax does."""
+    B, S, H, D = q.shape
+    kv = k.shape[2]
+    scale = scale if scale is not None else D ** -0.5
+    ct = _compute_dtype(q.dtype)
+    qg = _by_group(q, kv, ct)                           # (B, KV, g, S, D)
+    kk = k.to(ct).transpose(1, 2)[:, :, None]           # (B, KV, 1, S, D)
+    vv = v.to(ct).transpose(1, 2)[:, :, None]
+    s = torch.matmul(qg, kk.transpose(-1, -2)) * scale  # (B, KV, g, S, S)
+    if causal:
+        s = torch.where(_causal_keep(S, S, device=q.device), s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)                 # masked: exp(NEG_INF - m) = 0
+    l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    out = _ungroup(torch.matmul(p, vv) / l).to(q.dtype)
+    lse = (m + torch.log(l))[..., 0].reshape(B, H, S)
+    return out, lse
+
+
+def _check_attn(q, k, v) -> None:
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"expected q (B, S, H, D), k (B, S, KV, D), "
+                         f"v (B, S, KV, Dv), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must share a dtype: {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    if not q.dtype.is_floating_point:
+        raise TypeError(f"q must be floating point, got {q.dtype}")
+    B, S, H, D = q.shape
+    if (k.shape[:2] != (B, S) or v.shape[:3] != k.shape[:3]
+            or k.shape[3] != D):
+        raise ValueError(f"shapes disagree: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if k.shape[2] < 1 or H % k.shape[2]:
+        raise ValueError(f"{H} query heads do not share {k.shape[2]} KV "
+                         f"heads evenly")
+    if len({t.device for t in (q, k, v)}) != 1:
+        raise ValueError("q, k and v must lie on one device")
+
+
+def _attention_cuda(q, k, v, causal: bool, scale: float):
+    if q.dtype not in DTYPE_CODES:
+        raise TypeError(f"the CUDA kernel takes float32 or bfloat16, got "
+                        f"{q.dtype}")
+    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
+        raise ValueError("q, k and v need unit stride along the head dim")
+    B, S, H, D = q.shape
+    kv, Dv = k.shape[2], v.shape[-1]
+    if D > MAX_DIM or Dv > MAX_DIM:
+        raise ValueError(f"head dims up to {MAX_DIM}, got D={D} Dv={Dv}")
+    dev = q.device
+    out = torch.empty((B, S, H, Dv), dtype=q.dtype, device=dev)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out, lse
+    fn = _build.function("flash_attention_launch", _ATTN_ARGTYPES)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr(), lse.data_ptr(), DTYPE_CODES[q.dtype],
+                        B, S, H, H // kv, D, Dv, int(causal),
+                        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                        float(scale), stream), SITE_ATTN)
+    dispatch.count_launch(SITE_ATTN)
+    return out, lse
+
+
+def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, causal: bool = True,
+                            scale: Optional[float] = None):
+    """q (B, S, H, D), k (B, S, KV, D), v (B, S, KV, Dv), H a multiple of
+    KV -> (out (B, S, H, Dv) in q's dtype, lse (B, H, S) float32 on the
+    card), without autograd.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel on
+    the current stream or raise."""
+    _check_attn(q, k, v)
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        dispatch.record(SITE_ATTN, "torch")
+        return flash_attention_forward_plain(q, k, v, causal=causal,
+                                             scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    out = _attention_cuda(q, k, v, causal, scale)
+    dispatch.record(SITE_ATTN, "cuda")
+    return out
+
+
+def flash_attention_backward(q, k, v, out, lse, dout, *, causal: bool,
+                             scale: float):
+    """Gradients of attention from the forward's saved tensors, in
+    PyTorch ops on either device: (dq, dk, dv) in the inputs' dtypes.
+
+    Over query tiles of ``BWD_TILE`` rows, in order: delta = rowsum(dO * O),
+    P = exp(s - lse) under the mask, dV += P^T dO, dP = dO V^T,
+    dS = P * (dP - delta), dQ = scale dS K, dK += scale dS^T Q.  The g
+    query heads of a KV head are rows of one product, so dK and dV sum
+    over them inside it.  Memory stays O(S * tile) per head, and every
+    sum runs in a fixed order (deterministic)."""
+    B, S, H, D = q.shape
+    kv, Dv = k.shape[2], v.shape[-1]
+    g = H // kv
+    tile = BWD_TILE
+    ct = _compute_dtype(q.dtype)
+    qg, og, dog = (_by_group(t, kv, ct) for t in (q, out, dout))
+    kk = k.to(ct).transpose(1, 2)                       # (B, KV, S, D)
+    vv = v.to(ct).transpose(1, 2)                       # (B, KV, S, Dv)
+    lse_g = lse.to(ct).reshape(B, kv, g, S)
+    delta = (dog * og).sum(dim=-1)                      # (B, KV, g, S)
+    dq = torch.empty_like(qg)
+    dk = torch.zeros_like(kk)
+    dv = torch.zeros_like(vv)
+    for t0 in range(0, S, tile):
+        t1 = min(S, t0 + tile)
+        T, n = t1 - t0, (t1 if causal else S)
+        qt = qg[:, :, :, t0:t1].reshape(B, kv, g * T, D)
+        dot = dog[:, :, :, t0:t1].reshape(B, kv, g * T, Dv)
+        kt, vt = kk[:, :, :n], vv[:, :, :n]
+        s = torch.matmul(qt, kt.transpose(-1, -2)) * scale   # (B,KV,gT,n)
+        p = torch.exp(s - lse_g[..., t0:t1].reshape(B, kv, g * T, 1))
+        if causal:
+            keep = _causal_keep(T, n, offset=t0, device=q.device).repeat(g, 1)
+            p = torch.where(keep, p, 0.0)
+        dp = torch.matmul(dot, vt.transpose(-1, -2))
+        ds = p * (dp - delta[..., t0:t1].reshape(B, kv, g * T, 1))
+        dq[:, :, :, t0:t1] = (torch.matmul(ds, kt) * scale).reshape(
+            B, kv, g, T, D)
+        dk[:, :, :n] += torch.matmul(ds.transpose(-1, -2), qt) * scale
+        dv[:, :, :n] += torch.matmul(p.transpose(-1, -2), dot)
+    return (_ungroup(dq).to(q.dtype), dk.transpose(1, 2).to(k.dtype),
+            dv.transpose(1, 2).to(v.dtype))
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Differentiable full-sequence attention: the forward is
+    :func:`flash_attention_forward` (the kernel on CUDA tensors, the plain
+    version on CPU tensors), the backward :func:`flash_attention_backward`
+    from the saved q, k, v, output and log-sum-exp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float):
+        out, lse = flash_attention_forward(q, k, v, causal=causal,
+                                           scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, out, lse, dout, causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """q (B, S, H, D), k (B, S, KV, D), v (B, S, KV, Dv) -> (B, S, H, Dv)
+    in q's dtype, differentiable (:class:`FlashAttentionFn`).  K and V
+    are read in place, query head h using KV head h // (H // KV).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel on
+    the current stream or raise."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    return FlashAttentionFn.apply(q, k, v, causal, scale)
+
+
+def flash_attention_gqa_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, *, causal: bool = True,
+                              scale: Optional[float] = None
+                              ) -> torch.Tensor:
+    """Plain version of :func:`flash_attention_gqa`, differentiated by
+    autograd through its own ops."""
+    return flash_attention_forward_plain(q, k, v, causal=causal,
+                                         scale=scale)[0]
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """The reference's per-head layout: q, k (B, S, D), v (B, S, Dv) ->
+    (B, S, Dv) in q's dtype, differentiable; one head of
+    :func:`flash_attention_gqa`."""
+    return flash_attention_gqa(q[:, :, None], k[:, :, None], v[:, :, None],
+                               causal=causal, scale=scale)[:, :, 0]
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, *, causal: bool = True,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """Plain version of :func:`flash_attention` (``ref.attention``)."""
+    return flash_attention_gqa_plain(q[:, :, None], k[:, :, None],
+                                     v[:, :, None], causal=causal,
+                                     scale=scale)[:, :, 0]

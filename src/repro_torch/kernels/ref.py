@@ -6,6 +6,7 @@
 reference's ``ref.wkv6`` is the sequential scan and returns float32."""
 
 from repro_torch.kernels.flash_attention import (  # noqa: F401
+    flash_attention_plain as attention,
     flash_decode_plain as attention_decode)
 from repro_torch.kernels.mandelbrot import (  # noqa: F401
     mandelbrot_plain as mandelbrot)

@@ -2,13 +2,18 @@
 
 The GQA half of ``repro.models.attention``: optional QKV bias (qwen2),
 qk-norm (qwen3), sliding window with a rolling cache (hymba's layers).
-Full-sequence paths take a causal mask and an optional window; the
-decode path takes a cache and the current position, and attends through
-``kernels.flash_decode_gqa`` — the CUDA kernel on the card, its plain
-version on the CPU — straight from the cache's (B, L, KV, Dh) layout.
+Full-sequence paths (training, prefill) with a plain causal mask attend
+through ``kernels.flash_attention_gqa`` at any length, and the decode
+path through ``kernels.flash_decode_gqa``: the CUDA kernels on the card,
+their plain versions on the CPU, straight from the model's (B, S, KV, Dh)
+layout.  Both compute the exact softmax attention of the reference's
+dense ``_attend`` and of its chunked ``flash_attend``, keeping the
+probabilities in float32 where ``_attend`` rounds them to v's dtype.
+Windowed and prefix-LM masks take the dense ``_attend``.
 
 Caches are preallocated and written in place (the reference returns new
-ones).  The chunked ``flash_attend``, cross-attention (whisper's
+ones).  The chunked ``flash_attend`` for windowed or prefix-LM masks at
+``flash_threshold`` tokens or more, cross-attention (whisper's
 ``kv_override`` / ``cross_kv``) and the MLA functions are not ported yet:
 ROADMAP.md queue A, item A6.
 """
@@ -68,8 +73,9 @@ def _repeat_kv(k: torch.Tensor, g: int) -> torch.Tensor:
 
 def flash_attend(*args, **kwargs):
     raise NotImplementedError(
-        "chunked flash attention (repro.models.attention.flash_attend) is "
-        "not ported to repro_torch yet: ROADMAP.md queue A, item A6")
+        "chunked flash attention with a window or a prefix "
+        "(repro.models.attention.flash_attend) is not ported to repro_torch "
+        "yet: ROADMAP.md queue A, item A6")
 
 
 # ==================================================================== GQA
@@ -106,17 +112,25 @@ def _gqa_qkv(p, cfg: ModelConfig, x, positions, rope: bool = True):
 
 def gqa_forward(p, cfg: ModelConfig, x, positions, *, window: int = 0,
                 prefix_len: int = 0, rope: bool = True) -> torch.Tensor:
-    """Full-sequence (train / prefill) GQA."""
+    """Full-sequence (train / prefill) GQA.  A plain causal mask goes
+    through ``ops.flash_attention_gqa`` at any S; a window or a prefix
+    through the dense ``_attend``, below ``flash_threshold`` only."""
     B, S, _ = x.shape
     dh, h, kvh = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     g = h // kvh
-    if S >= getattr(cfg, "flash_threshold", FLASH_THRESHOLD):
+    plain_causal = window == 0 and prefix_len == 0
+    if not plain_causal and S >= getattr(cfg, "flash_threshold",
+                                         FLASH_THRESHOLD):
         flash_attend()
     q, k, v = _gqa_qkv(p, cfg, x, positions, rope=rope)
-    mask = causal_mask(S, S, window=window, prefix_len=prefix_len,
-                       device=x.device)
-    out = _attend(q, _repeat_kv(k, g), _repeat_kv(v, g), mask, dh ** -0.5,
-                  scores_bf16=getattr(cfg, "attn_scores_bf16", False))
+    if plain_causal:
+        out = ops.flash_attention_gqa(q, k, v, causal=True, scale=dh ** -0.5)
+    else:
+        mask = causal_mask(S, S, window=window, prefix_len=prefix_len,
+                           device=x.device)
+        out = _attend(q, _repeat_kv(k, g), _repeat_kv(v, g), mask,
+                      dh ** -0.5,
+                      scores_bf16=getattr(cfg, "attn_scores_bf16", False))
     return dense(p["o"], out.reshape(B, S, h * dh))
 
 
@@ -182,6 +196,10 @@ def gqa_prefill(p, cfg: ModelConfig, x, cache: dict, *, pos_offset: int = 0,
     cache["k"][:, slots] = k[:, -nkeep:].to(cache["k"].dtype)
     cache["v"][:, slots] = v[:, -nkeep:].to(cache["v"].dtype)
     cache["pos"][slots] = keep.to(torch.int32)
-    mask = causal_mask(S, S, window=window, device=dev)
-    out = _attend(q, _repeat_kv(k, g), _repeat_kv(v, g), mask, dh ** -0.5)
+    if window == 0:
+        out = ops.flash_attention_gqa(q, k, v, causal=True, scale=dh ** -0.5)
+    else:
+        mask = causal_mask(S, S, window=window, device=dev)
+        out = _attend(q, _repeat_kv(k, g), _repeat_kv(v, g), mask,
+                      dh ** -0.5)
     return dense(p["o"], out.reshape(B, S, h * dh)), cache

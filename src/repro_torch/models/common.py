@@ -3,7 +3,11 @@
 Parameters are a tree of :class:`ParamTree` modules mirroring the
 reference's nested-dict pytree: ``p["q"]["kernel"]`` and ``"bias" in p``
 read the same in both packages, and a list of per-layer trees stands for
-the reference's stacked ``layers`` axis.  :class:`ParamSpec` draws the
+the reference's stacked ``layers`` axis.  The models read plain nested
+dicts and lists of tensors the same way; :func:`tree_leaves` and
+:func:`tree_map` walk either in the reference's flatten order (sorted
+keys), which the optimizers and the training executor rely on.
+:class:`ParamSpec` draws the
 same distributions as ``repro.models.common.ParamSpec.materialize`` from a
 seeded ``torch.Generator`` on the target device (the two frameworks give
 different numbers from one seed; parity tests carry the reference's
@@ -51,20 +55,22 @@ class ParamSpec:
 
 class ParamTree(nn.Module):
     """A nested dict of tensors as a module: dict entries become
-    submodules, lists become ``nn.ModuleList``s, tensors become frozen
-    parameters (no gradients: this slice serves)."""
+    submodules, lists become ``nn.ModuleList``s, tensors become
+    parameters sharing the tensors' storage, frozen unless ``trainable``
+    (then autograd tracks them: the training executor differentiates the
+    loss with respect to them)."""
 
-    def __init__(self, tree: dict):
+    def __init__(self, tree: dict, *, trainable: bool = False):
         super().__init__()
         for key, val in tree.items():
             if isinstance(val, dict):
-                self.add_module(key, ParamTree(val))
+                self.add_module(key, ParamTree(val, trainable=trainable))
             elif isinstance(val, (list, tuple)):
                 self.add_module(key, nn.ModuleList(
-                    ParamTree(v) for v in val))
+                    ParamTree(v, trainable=trainable) for v in val))
             else:
                 self.register_parameter(
-                    key, nn.Parameter(val, requires_grad=False))
+                    key, nn.Parameter(val, requires_grad=trainable))
 
     def __getitem__(self, key: str):
         return getattr(self, key)
@@ -92,9 +98,51 @@ def init_params(specs: Specs, *, seed: int, device: torch.device
     return ParamTree(_materialize(specs, gen, device))
 
 
-def first_tensor(params: nn.Module) -> torch.Tensor:
-    """Any parameter of ``params`` (its device and dtype are the tree's)."""
-    return next(iter(params.parameters()))
+def tree_children(tree):
+    """(key, child) pairs of a tree node in the reference's flatten order
+    (dict keys sorted, lists in order); None for a leaf tensor."""
+    if isinstance(tree, torch.Tensor):
+        return None
+    if isinstance(tree, (list, tuple, nn.ModuleList)):
+        return list(enumerate(tree))
+    if isinstance(tree, ParamTree):
+        keys = list(tree._parameters) + list(tree._modules)
+    elif isinstance(tree, dict):
+        keys = list(tree)
+    else:
+        raise TypeError(f"not a parameter tree node: {type(tree).__name__}")
+    return [(k, tree[k]) for k in sorted(keys)]
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of a ParamTree or of nested dicts/lists, in flatten
+    order."""
+    kids = tree_children(tree)
+    if kids is None:
+        return [tree]
+    return [leaf for _, c in kids for leaf in tree_leaves(c)]
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` and the same-shaped ``rest``
+    -> nested dicts (sorted keys) and lists of the results."""
+    kids = tree_children(tree)
+    if kids is None:
+        return fn(tree, *rest)
+    out = {k: tree_map(fn, c, *(r[k] for r in rest)) for k, c in kids}
+    return [out[i] for i in range(len(out))] if isinstance(
+        tree, (list, tuple, nn.ModuleList)) else out
+
+
+def tree_unflatten(like, leaves):
+    """``leaves`` (in flatten order) in the structure of ``like``."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
+
+
+def first_tensor(params) -> torch.Tensor:
+    """Any tensor of ``params`` (its device and dtype are the tree's)."""
+    return tree_leaves(params)[0]
 
 
 # ------------------------------------------------------------------- norms
@@ -160,3 +208,18 @@ def dense(p, x: torch.Tensor) -> torch.Tensor:
     if "bias" in p:
         y = y + p["bias"]
     return y
+
+
+# -------------------------------------------------------------------- loss
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token cross-entropy over logits (..., V) in float32;
+    with ``mask``, the mean over the positions it weights."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        nll = nll * mask
+        return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

@@ -205,6 +205,12 @@ class RWKV6Model:
         return self.init_state(batch, device=device)  # O(1) state
 
     # -------------------------------------------------------- forward
+    def loss(self, params, batch: dict):
+        raise NotImplementedError(
+            "rwkv6 training is not ported to repro_torch yet: the "
+            "wkv6_batched kernel has no gradient (ROADMAP.md queue A, "
+            "item A5)")
+
     def forward(self, params, tokens: torch.Tensor, state=None, *,
                 last_only: bool = False):
         """tokens: (B, S) -> (logits (B, S, V), state).  ``state`` (a

@@ -4,7 +4,10 @@ qwen3-4b (qk-norm), qwen2-72b (QKV bias), deepseek-coder-33b (GQA).
 The dense half of ``repro.models.transformer``.  The reference scans a
 stacked layer axis; here the layers are a list (``params["dense_layers"]``)
 walked in Python, and decode caches are preallocated per layer and
-written in place.  MLA, MoE and the vlm family are not ported yet:
+written in place.  The training loss keeps every activation for the
+backward: the reference's ``jax.checkpoint`` rematerialisation changes
+memory and not values and is not ported.  MLA, MoE (with its auxiliary
+loss), multi-token prediction and the vlm family are not ported yet:
 ROADMAP.md queue A, item A6.
 """
 
@@ -16,7 +19,7 @@ import torch.nn.functional as F
 from repro_torch.device import resolve
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (ParamSpec, ParamTree, init_params,
-                                       layer_norm, rms_norm)
+                                       layer_norm, rms_norm, softmax_xent)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.moe import ffn_apply, ffn_specs
 
@@ -114,6 +117,14 @@ class TransformerModel:
             c = cfg.logit_softcap
             logits = torch.tanh(logits / c) * c
         return logits
+
+    def loss(self, params, batch: dict):
+        """batch: tokens (B, S), labels (B, S) and an optional mask, as
+        tensors on the params' device -> (loss, {"xent", "aux"}); aux is
+        0 for the dense family (no router)."""
+        logits, aux, _ = self.forward(params, batch["tokens"])
+        main = softmax_xent(logits, batch["labels"], batch.get("mask"))
+        return main + aux, {"xent": main, "aux": aux}
 
     # ----------------------------------------------------------- decode
     def init_cache(self, batch: int, max_len: int, *, device=None) -> dict:

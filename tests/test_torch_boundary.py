@@ -47,7 +47,7 @@ def test_default_device_raises_without_gpu():
     from repro_torch.apps import mandelbrot, psia
     from repro_torch.configs import get_smoke
     from repro_torch.device import resolve
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.models import build_model
     with pytest.raises(RuntimeError, match="no GPU"):
         mandelbrot.compute_tile(0)
@@ -61,6 +61,8 @@ def test_default_device_raises_without_gpu():
             model.init_cache(1, 4)
         with pytest.raises(RuntimeError, match="no GPU"):
             serve.main(["--arch", arch, "--smoke"])
+    with pytest.raises(RuntimeError, match="no GPU"):
+        train.main(["--arch", "olmo-1b", "--smoke"])
     with pytest.raises(RuntimeError, match="no GPU"):
         resolve()
     assert resolve("cpu") == torch.device("cpu")

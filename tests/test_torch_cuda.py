@@ -10,7 +10,11 @@ every operation as their plain versions do.  The decode kernels sum in
 another order than the plain versions' library reductions: float32
 attention within 1e-5, bfloat16 attention within one rounding of the
 output (1e-4 + 2**-7 of its size), wkv6 within 1e-5 (one step) and 1e-4
-(chunked) of the output's scale.
+(chunked) of the output's scale.  Full-sequence attention likewise, its
+log-sum-exp within 1e-5 + 1e-6 of its size, and its gradients (the
+backward in PyTorch ops from the kernel's output and log-sum-exp, against
+autograd through the plain version) within 1e-5 (float32) and 2**-6
+(bfloat16) of their largest magnitude.
 """
 
 import numpy as np
@@ -148,3 +152,91 @@ def test_wkv6_batched_kernel_equals_plain(cuda, T, dtype):
     want_y, want_s = kw.wkv6_batched_plain(*ins)
     _close_scaled(y, want_y, 1e-4)
     _close_scaled(s, want_s, 1e-4)
+
+
+ATTN_CASES = [  # (B, S, H, KV, D, Dv, causal)
+    (1, 300, 16, 16, 128, 128, True), (2, 100, 8, 2, 64, 64, True),
+    (2, 129, 4, 4, 64, 64, False), (1, 77, 4, 1, 192, 128, True),
+    (1, 70, 2, 2, 256, 256, False), (3, 1, 2, 1, 16, 8, True)]
+
+
+def _attn_inputs(cuda, case, dtype, gen):
+    B, S, H, KV, D, Dv, _ = case
+    return [torch.randn(s, generator=gen).to(cuda, dtype)
+            for s in ((B, S, H, D), (B, S, KV, D), (B, S, KV, Dv))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ATTN_CASES)
+def test_flash_attention_kernel_equals_plain(cuda, case, dtype):
+    causal = case[-1]
+    gen = torch.Generator().manual_seed(sum(case[:6]))
+    q, k, v = _attn_inputs(cuda, case, dtype, gen)
+    before = dispatch.launches("flash_attention")
+    out, lse = kf.flash_attention_forward(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert dispatch.launches("flash_attention") == before + 1
+    assert dispatch.status("flash_attention")["path"] == "cuda"
+    want, want_lse = kf.flash_attention_forward_plain(q, k, v,
+                                                      causal=causal)
+    atol, rtol = (1e-5, 0.0) if dtype == torch.float32 else (1e-4, 2.0 ** -7)
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    torch.testing.assert_close(out.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ATTN_CASES[:4])
+def test_flash_attention_grads_equal_plain_autograd(cuda, case, dtype):
+    causal = case[-1]
+    gen = torch.Generator().manual_seed(7 + sum(case[:6]))
+    ins = _attn_inputs(cuda, case, dtype, gen)
+    dout = torch.randn(case[:3] + case[5:6], generator=gen).to(cuda, dtype)
+    grads = []
+    for fn in (kf.flash_attention_gqa, kf.flash_attention_gqa_plain):
+        leaves = [t.clone().requires_grad_() for t in ins]
+        grads.append(torch.autograd.grad(fn(*leaves, causal=causal),
+                                         leaves, dout))
+    rel = 1e-5 if dtype == torch.float32 else 2.0 ** -6
+    for g, w in zip(*grads):
+        assert g.dtype == dtype
+        _close_scaled(g.float(), w.float(), rel)
+
+
+def test_flash_attention_duplicates_are_bit_identical(cuda):
+    gen = torch.Generator().manual_seed(5)
+    q, k, v = _attn_inputs(cuda, ATTN_CASES[1], torch.bfloat16, gen)
+    a = kf.flash_attention_forward(q, k, v)
+    b = kf.flash_attention_forward(q, k, v)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    dout = torch.randn_like(a[0])
+    ga, gb = ([t.clone().requires_grad_() for t in (q, k, v)]
+              for _ in range(2))
+    da = torch.autograd.grad(kf.flash_attention_gqa(*ga), ga, dout)
+    db = torch.autograd.grad(kf.flash_attention_gqa(*gb), gb, dout)
+    assert all(torch.equal(x, y) for x, y in zip(da, db))
+
+
+def test_training_path_launches_flash_attention(cuda):
+    """A loss and its gradients on the card go through the kernel, and
+    match the same step on the CPU (float32 smoke config)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.data import as_tensors, batch_for_step
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.runtime.executor import value_and_grad
+    cfg = get_smoke("olmo-1b").replace(dtype="float32")
+    model = build_model(cfg)
+    params = model.init(0, device=cuda)
+    batch = batch_for_step(cfg, 0, 2, 50)
+    fn = lambda p, b: model.loss(p, b)[0]  # noqa: E731
+    before = dispatch.launches("flash_attention")
+    loss, grads = value_and_grad(fn, params, as_tensors(batch, cuda))
+    torch.cuda.synchronize()
+    assert dispatch.launches("flash_attention") == before + cfg.n_layers
+    closs, cgrads = value_and_grad(fn, tree_map(torch.Tensor.cpu, params),
+                                   as_tensors(batch, "cpu"))
+    assert abs(float(loss) - float(closs)) <= 1e-5 * abs(float(closs))
+    for g, w in zip(tree_leaves(grads), tree_leaves(cgrads)):
+        _close_scaled(g.cpu(), w, 1e-4)

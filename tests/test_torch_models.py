@@ -125,15 +125,22 @@ def test_unported_families_name_their_roadmap_item(arch, family):
 
 
 def test_unported_paths_raise():
+    """MLA and the chunked ``flash_attend`` of a windowed mask at
+    ``flash_threshold`` tokens raise; a plain causal mask at the threshold
+    runs, through the flash attention kernel's path."""
     with pytest.raises(NotImplementedError, match="A6"):
         build_model(ModelConfig(family="dense", mla=True))
     cfg = ModelConfig(family="dense", n_layers=1, d_model=16, n_heads=2,
                       n_kv_heads=2, d_ff=32, vocab_size=32, dtype="float32",
-                      flash_threshold=8)
+                      flash_threshold=8, sliding_window=4)
     m = build_model(cfg)
     p = m.init(0, device="cpu")
+    tokens = torch.zeros((1, 8), dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="A6"):
-        m.forward(p, torch.zeros((1, 8), dtype=torch.int32))
+        m.forward(p, tokens)
+    logits, _, _ = build_model(cfg.replace(sliding_window=0)).forward(
+        p, tokens)
+    assert logits.shape == (1, 8, 32) and bool(torch.isfinite(logits).all())
 
 
 def test_init_draws_the_reference_distributions():
