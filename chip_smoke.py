@@ -8,15 +8,20 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
 Phases, each fatal when it fails:
 
   1. print the card's name and power limit; build the CUDA kernels from
-     ``src/repro_torch/csrc`` and print the build time and ptxas report;
+     ``src/repro_torch/csrc`` and print the build time and ptxas report
+     (registers, shared memory and spills of the wgmma flash_attention
+     and the flash_decode kernels on lines of their own); count the HGMMA
+     (wgmma) and UTMALDG (TMA load) instructions in the built
+     flash_attention wgmma kernel (``cuobjdump -sass``), both required;
   2. hold each kernel against its plain PyTorch version on the card, at
      the shapes of the main paths, with the tolerance printed, and time
      both: the kernel as a CUDA graph of launches (``ms``), in a profiler
      trace (``trace_ms``) and per back-to-back call (``call_ms``), and,
      where one PyTorch call computes the same function, that call
      (``library_ms``).  mandelbrot and spin_image agree exactly;
-     flash_decode (olmo-1b's 8 x 16 rows of 128 at L = 1016 and 1024,
-     float32 and bfloat16, scattered and fully masked blocks),
+     flash_decode (olmo-1b's 8 x 16 rows of 128 at L = 1016, 1024, 100
+     and 300, float32 and bfloat16, scattered and fully masked blocks,
+     with the CTAs per row printed; timed at L = 1016 and 80),
      wkv6_decode and wkv6_batched (rwkv6-1.6b's 8 x 32 heads of 64,
      T = 64 and a ragged 37) within float32 rounding;
   3. drive the paper's main path through the public API: threaded rDLB
@@ -41,20 +46,21 @@ Phases, each fatal when it fails:
      S = 64, 64 new tokens, and one profiled call of 8 new tokens for the
      kernels per token position, the device's busy share and the ops
      that take the most host time;
-  5. training: flash_attention (output and log-sum-exp) against its plain
-     version at olmo-1b's training shape (16 heads, S = 2048, D = 128,
-     bfloat16, causal), a ragged GQA shape (8 heads over 2, S = 1000,
-     float32 and bfloat16), a non-causal and a Dv != D shape, and the
-     gradients through FlashAttentionFn against autograd through the plain
-     version, then timed like the others, with SDPA as its library call;
-     rDLB training of olmo-1b at full width in bfloat16 (global batch
-     8 x 2048 tokens, 8 tasks, P = 4 threads, FAC, adamw, exact
-     accumulation, 3 steps), once failure-free and once with worker 1
-     fail-stopping during step 1: the parameters after every step must be
-     equal bit for bit, the losses finite, and flash_attention must have
-     launched on the path; a float32 copy cut to 2 layers gives loss and
-     gradients through the kernel within a stated tolerance of the plain
-     path's, both on the card;
+  5. training: flash_attention (output and log-sum-exp, and the variant
+     that ran) against its plain version at olmo-1b's training shape (16
+     heads, S = 2048, D = 128, bfloat16, causal), a ragged GQA shape (8
+     heads over 2, S = 1000, float32 and bfloat16), non-causal, Dv != D,
+     head dims 64 and 256 shapes, and the gradients through
+     FlashAttentionFn against autograd through the plain version, then
+     timed like the others, with SDPA as its library call; rDLB training
+     of olmo-1b at full width in bfloat16 (global batch 8 x 2048 tokens,
+     8 tasks, P = 4 threads, FAC, adamw, exact accumulation, 3 steps),
+     once failure-free and once with worker 1 fail-stopping during step
+     1: the parameters after every step must be equal bit for bit, the
+     losses finite, and flash_attention must have launched on the path,
+     every launch of a step in its wgmma variant; a float32 copy cut to 2
+     layers gives loss and gradients through the kernel within a stated
+     tolerance of the plain path's, both on the card;
   6. print one JSON line with each kernel's launches, error, times and
      bound, then the result line.
 
@@ -462,7 +468,9 @@ def compare_decode_kernels(dev) -> dict:
         return e
 
     err = 0.0
-    for L in (1016, 1024):
+    # 8 CTAs per row at L = 1016 and 1024 (at 1024 the second split is
+    # masked whole), 1 at 100, 3 at 300
+    for L in (1016, 1024, 100, 300):
         valid = torch.rand(L, generator=gen) < 0.6
         valid[128:256] = False                 # fully masked blocks
         valid[L - 64:] = False
@@ -473,7 +481,8 @@ def compare_decode_kernels(dev) -> dict:
             v = torch.randn((R, L, D), generator=gen).to(dev, dtype)
             err = max(err, check(
                 "flash_decode", f"rows={R},L={L},D={D},"
-                f"valid={int(valid.sum())}", dtype,
+                f"valid={int(valid.sum())},cluster={kf.decode_splits(L)}",
+                dtype,
                 kf.flash_decode(q, k, v, valid),
                 kf.flash_decode_plain(q, k, v, valid)))
         qc = torch.randn((B, H, D), generator=gen).to(dev, torch.bfloat16)
@@ -507,6 +516,15 @@ def compare_decode_kernels(dev) -> dict:
           lambda: kf.flash_decode_gqa_plain(qc, kc, vc, valid),
           "flash_decode_kernel", 100,
           library=lambda: sdpa(qs, ks, vs, attn_mask=valid[None, :]))
+    print(f"flash_decode,timed L={L},cluster={kf.decode_splits(L)} CTAs "
+          f"per row,ms={rows['flash_decode']['ms']}")
+    # and the short cache of a 64-token prompt's last step: one CTA a row
+    Ls = SERVE_PROMPTS[1] + SERVE_NEW
+    ks_, vs_ = kc[:, :Ls].contiguous(), vc[:, :Ls].contiguous()
+    ok_ = valid[:Ls].contiguous()
+    short = graph_ms(lambda: kf.flash_decode_gqa(qc, ks_, vs_, ok_), 100)
+    print(f"flash_decode,timed L={Ls},cluster={kf.decode_splits(Ls)} CTAs "
+          f"per row,ms={short}")
 
     # wkv6: rwkv6-1.6b's heads at B = 8
     dk = rwkv.rwkv_head_dim
@@ -806,41 +824,56 @@ def compare_attention_kernel(dev) -> dict:
     non-causal and Dv != D shapes; then timed at the training shape."""
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.kernels import dispatch
     from repro_torch.kernels import flash_attention as kf
 
     gen = torch.Generator().manual_seed(3)
     olmo = get_config(TRAIN_ARCH)
     H, D = olmo.n_heads, olmo.head_dim
-    cases = [  # (label, B, S, H, KV, D, Dv, causal, dtype)
+    cases = [  # (label, B, S, H, KV, D, Dv, causal, dtype, variant)
         ("olmo-1b training", 1, TRAIN_SEQ, H, olmo.n_kv_heads, D, D, True,
-         torch.bfloat16),
-        ("ragged gqa", 2, 1000, 8, 2, 128, 128, True, torch.float32),
-        ("ragged gqa", 2, 1000, 8, 2, 128, 128, True, torch.bfloat16),
-        ("non-causal", 2, 300, 4, 4, 64, 64, False, torch.float32),
-        ("dv != d", 1, 257, 4, 1, 192, 128, True, torch.float32),
-        ("dims 256", 1, 130, 2, 2, 256, 256, True, torch.bfloat16),
+         torch.bfloat16, "wgmma"),
+        ("ragged gqa", 2, 1000, 8, 2, 128, 128, True, torch.float32,
+         "fp32"),
+        ("ragged gqa", 2, 1000, 8, 2, 128, 128, True, torch.bfloat16,
+         "wgmma"),
+        ("non-causal", 2, 300, 4, 4, 64, 64, False, torch.float32, "fp32"),
+        ("dv != d", 1, 257, 4, 1, 192, 128, True, torch.float32, "fp32"),
+        ("dims 256", 1, 130, 2, 2, 256, 256, True, torch.bfloat16, "fp32"),
+        ("dims 64", 2, 333, 8, 4, 64, 64, True, torch.bfloat16, "wgmma"),
+        ("non-causal", 1, 200, 4, 4, 128, 128, False, torch.bfloat16,
+         "wgmma"),
     ]
     err = 0.0
-    for label, B, S, Hh, KV, Dq, Dv, causal, dtype in cases:
+    for label, B, S, Hh, KV, Dq, Dv, causal, dtype, want in cases:
         q = torch.randn((B, S, Hh, Dq), generator=gen).to(dev, dtype)
         k = torch.randn((B, S, KV, Dq), generator=gen).to(dev, dtype)
         v = torch.randn((B, S, KV, Dv), generator=gen).to(dev, dtype)
         out, lse = kf.flash_attention_forward(q, k, v, causal=causal)
+        variant = dispatch.status("flash_attention").get("variant")
         pout, plse = kf.flash_attention_forward_plain(q, k, v,
                                                       causal=causal)
         torch.cuda.synchronize()
+        if variant != want:
+            fail(f"flash_attention ({label}, {dtype}) ran the {variant} "
+                 f"variant, not {want}")
         d_out = (out.float() - pout.float()).abs()
         d_lse = (lse - plse).abs()
         # float32 within 1e-5; bfloat16 within one rounding of the output
+        # plus what rounding P to bfloat16 before P V can move it
         atol, rtol = (1e-5, 0.0) if dtype == torch.float32 else (
             1e-4, 2.0 ** -7)
-        ok_out = bool((d_out <= atol + rtol * pout.float().abs()).all())
+        tol = atol + rtol * pout.float().abs()
+        if dtype == torch.bfloat16:
+            tol = tol + kf.bf16_p_bound(q, k, v, causal=causal)
+        ok_out = bool((d_out <= tol).all())
         ok_lse = bool((d_lse <= 1e-5 + 1e-6 * plse.abs()).all())
         e = float(d_out.max())
         print(f"compare,flash_attention,{label},B={B},S={S},H={Hh},"
               f"KV={KV},D={Dq},Dv={Dv},causal={causal},{dtype},"
-              f"max_abs_err={e},tolerance={atol}+{rtol}*|plain|,"
-              f"lse_max_abs_err={float(d_lse.max())},"
+              f"variant={variant},max_abs_err={e},tolerance={atol}+{rtol}"
+              f"*|plain|{'+bf16_p_bound' if dtype != torch.float32 else ''}"
+              f",lse_max_abs_err={float(d_lse.max())},"
               f"lse_tolerance=1e-05+1e-06*|plain|")
         if not (ok_out and ok_lse):
             fail(f"flash_attention ({label}, {dtype}) differs from its "
@@ -876,7 +909,12 @@ def compare_attention_kernel(dev) -> dict:
     _time(rows, "flash_attention",
           lambda: kf.flash_attention_forward(q, k, v, causal=True),
           lambda: kf.flash_attention_forward_plain(q, k, v, causal=True),
-          "flash_attention_kernel", 20, library=library)
+          "flash_attention_wgmma_kernel", 20, library=library)
+    # the variant the timed launches ran, as the wrapper recorded it
+    variant = dispatch.status("flash_attention").get("variant")
+    if variant != "wgmma":
+        fail(f"the timed flash_attention launches ran the {variant} variant")
+    rows["flash_attention"]["variant"] = variant
     rows["flash_attention"]["library"] = sdpa_backend(library)
     return rows
 
@@ -954,6 +992,12 @@ def profile_train_task(model, params) -> None:
           f"calls, ms, share of busy)={top}")
 
 
+def wgmma_launches() -> int:
+    """Launches of flash_attention's wgmma variant so far."""
+    from repro_torch.kernels import dispatch
+    return dispatch.variant_launches("flash_attention").get("wgmma", 0)
+
+
 def params_on_host(params) -> list:
     from repro_torch.models.common import tree_leaves
     return [t.detach().to("cpu") for t in tree_leaves(params)]
@@ -985,6 +1029,7 @@ def run_training(model, params, *, failing: bool, reference=None):
             w = ex.workers[1]
             w.fail_after_tasks = w.tasks_done
         before = dispatch.launches("flash_attention")
+        before_wgmma = wgmma_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = ex.train_step(params, opt_state, batch)
@@ -999,7 +1044,8 @@ def run_training(model, params, *, failing: bool, reference=None):
                    n_duplicates=res.n_duplicates, wasted=res.wasted_tasks,
                    by_worker=res.tasks_by_worker, survivors=res.survivors,
                    flash_attention_launches=dispatch.launches(
-                       "flash_attention") - before)
+                       "flash_attention") - before,
+                   wgmma_launches=wgmma_launches() - before_wgmma)
         records.append(rec)
         snap = params_on_host(params)
         if reference is not None:
@@ -1039,11 +1085,18 @@ def drive_training(dev) -> int:
     status = dispatch.status("flash_attention")
     for r in rec:
         print(f"train,{TRAIN_ARCH},fail-stop,{json.dumps(r)}")
-    print(f"launches on the {TRAIN_ARCH} training path: {launches}")
+    variants = dispatch.variant_launches("flash_attention")
+    print(f"launches on the {TRAIN_ARCH} training path: {launches}; "
+          f"flash_attention by variant: {variants}")
     if launches.get("flash_attention", 0) <= 0 or status.get("path") != (
             "cuda"):
         fail(f"flash_attention was not launched on the training path "
              f"({launches}, {status})")
+    for r in rec:
+        if not 0 < r["wgmma_launches"] == r["flash_attention_launches"]:
+            fail(f"training step {r['step']}: {r['wgmma_launches']} wgmma "
+                 f"launches of {r['flash_attention_launches']} "
+                 f"flash_attention launches")
     if (rec[TRAIN_FAIL_STEP]["n_duplicates"] < 1
             or 1 in rec[TRAIN_FAIL_STEP]["survivors"]):
         fail("the fail-stop training run lost no worker or issued no "
@@ -1091,6 +1144,46 @@ def check_train_float32(dev) -> None:
 
 
 
+def ptxas_entries(log: str) -> list:
+    """(source, mangled kernel name, its "Used ..." line, its spill
+    line) for each kernel entry in nvcc's ``-Xptxas -v`` report."""
+    import re
+    out, src, entry, spills = [], "", None, ""
+    for line in log.splitlines():
+        if line.startswith("--- "):
+            src = line[4:].strip()
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry, spills = m.group(1), ""
+        elif "spill" in line:
+            spills = line.strip()
+        elif "Used" in line and entry is not None:
+            out.append((src, entry, line.split(":", 1)[-1].strip(), spills))
+            entry = None
+    return out
+
+
+def sass_counts(build, kernel: str) -> dict:
+    """HGMMA (wgmma) and UTMALDG (TMA load) instructions in the SASS of
+    the built library's functions whose name holds ``kernel``
+    (``cuobjdump -sass``)."""
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    res = subprocess.run([tool, "-sass", str(build.BUILD_DIR
+                                             / build.LIB_NAME)],
+                         capture_output=True, text=True, timeout=300)
+    if res.returncode != 0:
+        fail(f"cuobjdump failed: {res.stderr.strip()[:500]}")
+    counts = {"HGMMA": 0, "UTMALDG": 0}
+    inside = False
+    for line in res.stdout.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+        elif inside:
+            for op in counts:
+                counts[op] += line.count(op)
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1119,6 +1212,16 @@ def main() -> int:
     for line in _build.build_log.splitlines():
         if "registers" in line or line.startswith("---"):
             print(f"ptxas: {line.strip()}")
+    # the redesigned kernels' registers, shared memory and spills
+    for src, name, regs, spills in ptxas_entries(_build.build_log):
+        if "wgmma" in name or src == "flash_decode.cu":
+            print(f"ptxas,{src},{name},{regs},{spills}")
+    sass = sass_counts(_build, "flash_attention_wgmma")
+    print(f"sass,flash_attention_wgmma_kernel,HGMMA={sass['HGMMA']},"
+          f"UTMALDG={sass['UTMALDG']}")
+    if not (sass["HGMMA"] > 0 and sass["UTMALDG"] > 0):
+        fail(f"the built flash_attention wgmma kernel lacks HGMMA or "
+             f"UTMALDG instructions: {sass}")
     dev = torch.device("cuda")
 
     # phase 2: kernels against their plain versions

@@ -14,40 +14,65 @@
 // dim, query head h reading KV head h / group: the model's own layout,
 // with no repeat and no transpose of K and V.  The reference's per-head
 // (B, S, D) layout is H = KV = 1.  out is (B, S, H, Dv) and lse (B, H, S),
-// both contiguous.
-//
-// Tiling: one CTA of 256 threads per (batch, head, tile of 64 query rows).
-// The CTA keeps its query tile in shared memory and walks the key tiles
-// of 64 in order; K and then V of a tile are staged in one shared buffer
-// (as float32).  Thread (ty, tx), ty = tid / 16, tx = tid % 16, owns query
-// rows 4 ty .. 4 ty + 3; it computes their scores against keys tx + 16 j
-// (j < 4), the 16 threads of a row group reduce max and sum with
-// shuffles, the probabilities go through shared memory, and the thread
-// accumulates output columns tx + 16 c (c < NV).  When causal, key tiles
-// past the query tile's last row are skipped (the Pallas kernel's
-// `pl.when`), and the query tiles with most work are scheduled first.
-// Any S: rows and keys past S are masked (the reference asserts
-// S % block == 0, a TPU block constraint).  Head dims up to 256, Dv may
-// differ from D.  Masked probabilities are set to 0 and l is guarded by
-// max(l, 1e-30), as in the TPU kernel, so a masked key adds nothing.
+// both contiguous.  When causal, key tiles past a query tile's last row
+// are skipped (the Pallas kernel's `pl.when`) and the query tiles with
+// most work are scheduled first.  Any S: rows and keys past S are masked
+// (the reference asserts S % block == 0, a TPU block constraint).  Every
+// sum runs in a fixed order in one thread, one shuffle tree or one wgmma
+// (no atomics), so duplicated rDLB tasks give bit-identical output.
 //
 // What bounds it: operations.  At olmo-1b's shape (16 heads, S = 2048,
 // D = 128, causal) the work is about 17 GFLOP against 34 MB of inputs and
-// outputs.  This kernel runs the products on the CUDA cores in float32,
-// reading both operands from shared memory; the tensor cores (wgmma, with
-// TMA loads) are the way to the card's bf16 rate and are left to a later
-// version.  Every sum runs in a fixed order in one thread or one shuffle
-// tree (no atomics), so duplicated rDLB tasks give bit-identical output.
+// outputs.  Two variants.  The caller chooses one from the inputs
+// (`attention_variant` in kernels/flash_attention.py: dtype, head dims and
+// whether TMA can load the tensors, never because something failed) and
+// passes it; the launcher checks that the inputs allow it:
+//
+// * "wgmma" -- bfloat16 with D == Dv in {64, 128}, 16-byte aligned bases
+//   and strides (TMA's rule): the products on the tensor cores.  One CTA per (batch, head, 128 query rows): one
+//   producer warp starts TMA loads (128-byte swizzle) of the query tile
+//   once and of each K and V tile of 64 keys into a ring of two stages
+//   guarded by mbarriers; two consumer warpgroups of 64 query rows each
+//   compute S = Q K^T with wgmma from shared memory (float32
+//   accumulators), mask and run the online softmax in registers in
+//   float32, add l from the float32 probabilities, round P to bfloat16
+//   in registers and add O += P V with wgmma (A from registers, V
+//   MN-major from shared memory); O stays in float32 registers until the
+//   epilogue.  Rounding P to bfloat16 is what the reference did on its
+//   own chip: the TPU kernel's float32 dot_general at default precision
+//   feeds the TPU's matrix unit bfloat16 operands.  Its effect is at most
+//   2^-8 (Sum_j p_j |v_j|) / l per output element; the plain helper
+//   `bf16_p_bound` gives twice that.  The ragged tail of S arrives from
+//   TMA as zeros and is masked as above.  D = 256 would need 128 float32
+//   accumulators a thread for O beside S and P (over the register budget
+//   of two consumer warpgroups) and takes the other variant.
+// * "fp32" -- float32 inputs (the float32 check copies need exact float32
+//   products), and bfloat16 with Dv != D, other head dims up to 256 or
+//   strides TMA cannot take (it reads through any strides):
+//   one CTA of 256 threads per (batch, head, 64 query rows), K and then V
+//   of a tile of 64 keys staged in shared memory as float32, products on
+//   the CUDA cores.  Thread (ty, tx), ty = tid / 16, tx = tid % 16, owns
+//   query rows 4 ty .. 4 ty + 3; it computes their scores against keys
+//   tx + 16 j (j < 4), the 16 threads of a row group reduce max and sum
+//   with shuffles, the probabilities go through shared memory, and the
+//   thread accumulates output columns tx + 16 c (c < NV).  Masked
+//   probabilities are set to 0 and l is guarded by max(l, 1e-30), as in
+//   the TPU kernel, so a masked key adds nothing.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
 #include <map>
 #include <mutex>
 #include <utility>
 
+#include "hopper.cuh"
+
 namespace {
 
+// ============================================================= fp32 variant
 constexpr int kThreads = 256;
 constexpr int kBQ = 64;                          // query rows per CTA
 constexpr int kBK = 64;                          // keys per tile
@@ -295,29 +320,354 @@ int dispatch_dv(const void* q, const void* k, const void* v, void* out,
                        causal, stream);
 }
 
-}  // namespace
+// ============================================================ wgmma variant
+namespace wg {
 
-// Dynamic shared memory (bytes) of one flash_attention CTA.
-extern "C" size_t flash_attention_smem(int D, int Dv) {
-  return smem_bytes(D, Dv);
+using namespace hopper;
+
+constexpr int kWarpgroups = 2;                  // consumer warpgroups
+constexpr int kBQ = 64 * kWarpgroups;           // query rows per CTA
+constexpr int kBK = 64;                         // keys per tile
+constexpr int kStages = 2;                      // K/V ring
+constexpr int kThreads = 128 * kWarpgroups + 32;  // + one producer warp
+constexpr int kChunk = 64;      // head-dim elements per 128-byte smem row
+constexpr int kRowBytes = 128;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// Shared memory, from a 1024-byte aligned base: the query tile as NC
+// chunks of kBQ rows x 128 bytes, then kStages K tiles and kStages V
+// tiles, each NC chunks of kBK rows x 128 bytes, then the mbarriers.
+template <int D>
+struct Smem {
+  static constexpr int NC = D / kChunk;
+  static constexpr int kQBytes = NC * kBQ * kRowBytes;
+  static constexpr int kTileBytes = NC * kBK * kRowBytes;
+  static constexpr int kK = kQBytes;
+  static constexpr int kV = kK + kStages * kTileBytes;
+  static constexpr int kBar = kV + kStages * kTileBytes;
+  static constexpr int kBytes = kBar + 8 * (1 + 3 * kStages) + 1024;
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
 }
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Thread t of a consumer warpgroup (warp w = t / 32, lane) holds, in the
+// wgmma accumulator layout, rows 16 w + lane / 4 and that + 8 of the
+// warpgroup's 64, and in each group of 8 columns the two at
+// 2 (lane % 4): element i sits at row + 8 ((i >> 1) & 1), column
+// 8 (i >> 2) + 2 (lane % 4) + (i & 1).  Scores are kept in the log2
+// domain (x = q.k scale log2 e), so p = 2^(x - m).
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1) flash_attention_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ lse, int S, int H, int group, float scale_log2,
+    int causal) {
+  using L = Smem<D>;
+  constexpr int NC = L::NC;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t s_q = base, s_k = base + L::kK, s_v = base + L::kV;
+  const uint32_t bar = base + L::kBar;   // q_full, k_full[], v_full[], empty[]
+  const uint32_t q_full = bar;
+  const uint32_t k_full = bar + 8;
+  const uint32_t v_full = bar + 8 * (1 + kStages);
+  const uint32_t empty = bar + 8 * (1 + 2 * kStages);
+
+  const int n_qt = (S + kBQ - 1) / kBQ;
+  // heavier (later) query tiles first when causal
+  const int qt = causal ? n_qt - 1 - static_cast<int>(blockIdx.y)
+                        : static_cast<int>(blockIdx.y);
+  const int q0 = qt * kBQ;
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const int kvh = h / group;
+  const int q_last = (q0 + kBQ < S ? q0 + kBQ : S) - 1;
+  const int n_kt = causal ? q_last / kBK + 1 : (S + kBK - 1) / kBK;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4 * kWarpgroups);   // one arrival a warp
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (tid >= 128 * kWarpgroups) {
+    // producer warp: one thread starts every load
+    if (tid == 128 * kWarpgroups) {
+      mbar_expect_tx(q_full, L::kQBytes);
+      for (int c = 0; c < NC; ++c)
+        tma_load_4d(s_q + c * kBQ * kRowBytes, &tm_q, q_full, c * kChunk, h,
+                    q0, b);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % kStages;
+        // the stage's previous use has been released (passes at once on
+        // its first use)
+        mbar_wait(empty + 8 * s, ((kt / kStages) & 1) ^ 1);
+        const uint32_t kd = s_k + s * L::kTileBytes;
+        const uint32_t vd = s_v + s * L::kTileBytes;
+        mbar_expect_tx(k_full + 8 * s, L::kTileBytes);
+        for (int c = 0; c < NC; ++c)
+          tma_load_4d(kd + c * kBK * kRowBytes, &tm_k, k_full + 8 * s,
+                      c * kChunk, kvh, kt * kBK, b);
+        mbar_expect_tx(v_full + 8 * s, L::kTileBytes);
+        for (int c = 0; c < NC; ++c)
+          tma_load_4d(vd + c * kBK * kRowBytes, &tm_v, v_full + 8 * s,
+                      c * kChunk, kvh, kt * kBK, b);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroups
+  const int wg = tid / 128;
+  const int warp = tid % 128 / 32;
+  const int lane = tid % 32;
+  const int r_lo = q0 + 64 * wg;                // warpgroup's first row
+  const int row0 = r_lo + 16 * warp + lane / 4;  // rows row0, row0 + 8
+  const int col0 = 2 * (lane % 4);
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  mbar_wait(q_full, 0);
+  const uint32_t qa = s_q + wg * 64 * kRowBytes;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int s = kt % kStages;
+    const uint32_t par = (kt / kStages) & 1;
+    const int k0 = kt * kBK;
+    // every key of the tile lies above this warpgroup's rows
+    const bool skip = causal && k0 > r_lo + 63;
+    mbar_wait(k_full + 8 * s, par);
+    uint32_t pa[kBK / 16][4];
+    if (!skip) {
+      float sc[32] = {};
+      const uint32_t kb = s_k + s * L::kTileBytes;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk / 4) * 64 * kRowBytes + (kk % 4) * 32;
+        wgmma_m64n64k16_ss(
+            sc, desc_b128(qa + (kk / 4) * kBQ * kRowBytes + (kk % 4) * 32,
+                          16, 1024),
+            desc_b128(kb + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+
+      const bool need_mask =
+          k0 + kBK > S || (causal && k0 + kBK - 1 > r_lo);
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        float x = sc[i] * scale_log2;
+        if (need_mask) {
+          const int row = row0 + 8 * ((i >> 1) & 1);
+          const int col = k0 + 8 * (i >> 2) + col0 + (i & 1);
+          if (col >= S || (causal && col > row)) x = kNegInf;
+        }
+        sc[i] = x;
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+      }
+      float m_new[2], corr[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        m_new[r] = fmaxf(m[r], quad_max(mx[r]));
+        corr[r] = exp2f(m[r] - m_new[r]);
+      }
+      // masked scores are kNegInf: 2^(kNegInf - m) is 0 once the row has
+      // a finite max; before that every score of the row is masked
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i >> 1) & 1;
+        const float p = m_new[r] > kNegInf ? exp2f(sc[i] - m_new[r]) : 0.f;
+        sc[i] = p;
+        psum[r] += p;
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] = l[r] * corr[r] + quad_sum(psum[r]);
+        m[r] = m_new[r];
+      }
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          pa[kk][j] = pack_bf16(sc[8 * kk + 2 * j], sc[8 * kk + 2 * j + 1]);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+    }
+    mbar_wait(v_full + 8 * s, par);
+    if (!skip) {
+      const uint32_t vb = s_v + s * L::kTileBytes;
+      fence_regs(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        // 16 keys = 16 smem rows; the next 64 columns of V are the next
+        // chunk, kBK rows further on (the leading byte offset)
+        const uint64_t dv = desc_b128(vb + kk * 16 * kRowBytes,
+                                      kBK * kRowBytes, 1024);
+        if constexpr (D == 128)
+          wgmma_m64n128k16_rs(o, pa[kk], dv, 1);
+        else
+          wgmma_m64n64k16_rs(o, pa[kk], dv, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * s);   // stage released
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= S) continue;
+    const float lg = fmaxf(l[r], 1e-30f);
+    const float inv = 1.f / lg;
+    __nv_bfloat16* orow =
+        out + ((static_cast<long long>(b) * S + row) * H + h) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(orow + 8 * j + col0) =
+          pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+    if (lane % 4 == 0)
+      lse[(static_cast<long long>(b) * H + h) * S + row] =
+          m[r] * kLn2 + logf(lg);
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, a libcuda function, fetched through the runtime
+// so that the library needs no link against libcuda.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A bf16 (B, S, heads, D) tensor with element strides (sb, ss, sh) and
+// unit stride along D, as 4-D tensor map {D, heads, S, B}; boxes of 64
+// head-dim elements (128 bytes, swizzled) x `rows` positions.
+bool tensor_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
+                int D, long long sb, long long ss, long long sh, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(ss) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {kChunk, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// TMA needs 16-byte aligned bases and strides.
+bool aligned(const void* p, const long long* st) {
+  if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  for (int i = 0; i < 3; ++i)
+    if (st[i] % 8 != 0 || st[i] <= 0) return false;
+  return true;
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int S, int H, int group, const long long* st,
+           float scale, int causal, cudaStream_t stream) {
+  if (!aligned(q, st) || !aligned(k, st + 3) || !aligned(v, st + 6))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tq, tk, tv;
+  const int KV = H / group;
+  if (!tensor_map(&tq, q, B, S, H, D, st[0], st[1], st[2], kBQ) ||
+      !tensor_map(&tk, k, B, S, KV, D, st[3], st[4], st[5], kBK) ||
+      !tensor_map(&tv, v, B, S, KV, D, st[6], st[7], st[8], kBK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = flash_attention_wgmma_kernel<D>;
+  const size_t smem = Smem<D>::kBytes;
+  cudaError_t err = opt_in(reinterpret_cast<const void*>(kernel), smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), lse, S, H, group,
+      scale * 1.4426950408889634f, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wg
+
+}  // namespace
 
 // q: (B, S, H, D), k: (B, S, KV, D), v: (B, S, KV, Dv) with element
 // strides (batch, position, head) and unit stride along the head dim,
 // H = KV * group; out: (B, S, H, Dv) contiguous; lse: (B, H, S) float32
 // contiguous.  dtype 0 = float32, 1 = bfloat16 (q, k, v and out alike).
-// 1 <= D, Dv <= 256; causal 0 or 1.
+// 1 <= D, Dv <= 256; causal 0 or 1.  variant 0 runs "fp32", 1 runs
+// "wgmma", which needs bfloat16, D == Dv in {64, 128} and 16-byte aligned
+// bases and strides (a multiple of 8 elements); other inputs for it
+// return cudaErrorInvalidValue.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* out, float* lse,
     int dtype, int B, int S, int H, int group, int D, int Dv, int causal,
     long long q_sb, long long q_ss, long long q_sh, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
-    long long v_sh, float scale, cudaStream_t stream) {
+    long long v_sh, float scale, int variant, cudaStream_t stream) {
   if (D < 1 || Dv < 1 || D > kMaxDim || Dv > kMaxDim || group < 1 ||
       H % group != 0 || B < 1 || S < 1 || (S + kBQ - 1) / kBQ > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long st[9] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                            v_sb, v_ss, v_sh};
+  if (variant == 1) {
+    if (dtype != 1 || D != Dv || (D != 64 && D != 128))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return D == 64 ? wg::launch<64>(q, k, v, out, lse, B, S, H, group, st,
+                                    scale, causal, stream)
+                   : wg::launch<128>(q, k, v, out, lse, B, S, H, group, st,
+                                     scale, causal, stream);
+  }
+  if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
     return dispatch_dv<float>(q, k, v, out, lse, B, S, H, group, D, Dv, st,
                               scale, causal, stream);

@@ -5,9 +5,9 @@ links them into ``build/kernels/libkernels.so`` at the repository root,
 and the library is loaded with ``ctypes``.  The sources have a plain C
 interface and include no PyTorch header, so a build takes seconds.  The
 build happens at first use, never at import; it is redone when a source
-is newer than the library.  Each C entry point returns
-``cudaGetLastError()`` after its launch; :func:`check` raises on a
-non-zero code.
+or a header it includes (``csrc/*.cuh``) is newer than the library.
+Each C entry point returns ``cudaGetLastError()`` after its launch;
+:func:`check` raises on a non-zero code.
 """
 
 from __future__ import annotations
@@ -57,7 +57,7 @@ def _stale(lib: pathlib.Path) -> bool:
     if not lib.exists():
         return True
     built = lib.stat().st_mtime
-    return any(s.stat().st_mtime > built for s in sources())
+    return any(s.stat().st_mtime > built for s in CSRC.glob("*.cu*"))
 
 
 def _compile() -> pathlib.Path:

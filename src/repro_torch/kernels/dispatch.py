@@ -6,7 +6,9 @@ it launched its kernel on a CUDA tensor, ``"torch"`` when it ran the
 plain PyTorch version on a CPU tensor.  There is no fallback path: on a
 CUDA tensor a wrapper launches its kernel or raises.  ``status()`` lets
 benchmarks and tests assert on what actually executed, and the launch
-counts let a run show that its main path went through the kernels.
+counts let a run show that its main path went through the kernels.  A
+site with more than one kernel (flash_attention: "wgmma" and "fp32")
+also records which variant ran, and counts launches per variant.
 """
 
 from __future__ import annotations
@@ -18,14 +20,17 @@ PATHS = ("cuda", "torch")
 _lock = threading.Lock()
 _STATUS: dict[str, dict] = {}
 _LAUNCHES: dict[str, int] = {}
+_VARIANTS: dict[str, dict[str, int]] = {}
 
 
-def record(site: str, path: str) -> None:
-    """Record that ``site`` (e.g. "mandelbrot") ran ``path``."""
+def record(site: str, path: str, variant: str | None = None) -> None:
+    """Record that ``site`` (e.g. "mandelbrot") ran ``path``, and which
+    ``variant`` of its kernel where it has several."""
     if path not in PATHS:
         raise ValueError(f"unknown kernel path {path!r}; one of {PATHS}")
     with _lock:
-        _STATUS[site] = {"path": path}
+        _STATUS[site] = ({"path": path} if variant is None
+                         else {"path": path, "variant": variant})
 
 
 def status(site: str | None = None) -> dict:
@@ -36,10 +41,14 @@ def status(site: str | None = None) -> dict:
     return snap.get(site, {}) if site is not None else snap
 
 
-def count_launch(site: str) -> None:
-    """Add one to ``site``'s launch count (called right after a launch)."""
+def count_launch(site: str, variant: str | None = None) -> None:
+    """Add one to ``site``'s launch count (called right after a launch),
+    and to its ``variant``'s."""
     with _lock:
         _LAUNCHES[site] = _LAUNCHES.get(site, 0) + 1
+        if variant is not None:
+            per = _VARIANTS.setdefault(site, {})
+            per[variant] = per.get(variant, 0) + 1
 
 
 def launches(site: str | None = None):
@@ -49,7 +58,14 @@ def launches(site: str | None = None):
                 else dict(_LAUNCHES))
 
 
+def variant_launches(site: str) -> dict[str, int]:
+    """{variant: launch count} of one site (empty if none was counted)."""
+    with _lock:
+        return dict(_VARIANTS.get(site, {}))
+
+
 def reset_launches() -> None:
     """Set every launch count to 0."""
     with _lock:
         _LAUNCHES.clear()
+        _VARIANTS.clear()

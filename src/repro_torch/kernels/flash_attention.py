@@ -18,7 +18,10 @@ Decode (site ``flash_decode``; body ``_decode_kernel`` in the reference):
   contribute nothing; a row without a valid slot returns zeros, as the
   TPU kernel's re-zeroed probabilities give.  Any L is taken: the
   reference's caller gates on ``L % min(128, L) == 0`` (a TPU block
-  constraint), the port does not.
+  constraint), the port does not.  The kernel splits a row's L slots
+  over :func:`decode_splits` CTAs of one thread-block cluster and merges
+  their partial states in rank order; :func:`flash_decode_split_plain`
+  mirrors that on plain ops.
 
 Full sequence (site ``flash_attention``; body ``_kernel``):
 
@@ -37,7 +40,12 @@ Full sequence (site ``flash_attention``; body ``_kernel``):
   Causal or not, any S (the reference asserts ``S % bq == 0``, a TPU
   block constraint), head dims up to 256 with Dv free to differ from D.
   Scores and sums are float32 (float64 for float64 inputs on the CPU);
-  the output has q's dtype.
+  the output has q's dtype.  The kernel has two variants, chosen by
+  :func:`attention_variant` from dtype, head dims and layout:
+  ``"wgmma"`` (bfloat16, D == Dv in {64, 128}, tensors TMA can load:
+  tensor cores, P rounded to bfloat16 before P V, within
+  :func:`bf16_p_bound` of the plain version's float32 P) and ``"fp32"``
+  (everything else: CUDA cores, float32 products, any strides).
 """
 
 from __future__ import annotations
@@ -57,11 +65,17 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 5
              + [ctypes.c_int] * 7
              + [ctypes.c_longlong] * 6
-             + [ctypes.c_float, ctypes.c_void_p])
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 _ATTN_ARGTYPES = ([ctypes.c_void_p] * 5
                   + [ctypes.c_int] * 8
                   + [ctypes.c_longlong] * 9
-                  + [ctypes.c_float, ctypes.c_void_p])
+                  + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+#: decode: slots per CTA before a row's slots are split over another CTA
+#: of its cluster, and the most CTAs a cluster has (the portable size)
+SPLIT_SLOTS = 128
+MAX_SPLITS = 8
+#: full-sequence kernel variants, by their code in the C launcher
+VARIANTS = ("fp32", "wgmma")
 #: query rows per tile of the blocked backward: its score-sized
 #: intermediates hold (H, BWD_TILE, S) floats per batch row
 BWD_TILE = 512
@@ -81,6 +95,76 @@ def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     l = p.sum(dim=-1, keepdim=True)
     out = torch.einsum("bl,bld->bd", p, v.float())
     return (out / torch.clamp(l, min=1e-30)).to(q.dtype)
+
+
+def decode_splits(L: int) -> int:
+    """CTAs (one thread-block cluster) the decode kernel gives one query
+    row of an L-slot cache: one per ``SPLIT_SLOTS`` slots, at least 1 and
+    at most ``MAX_SPLITS``.  A function of L alone, so the kernel's
+    summation order, and with it its result, does not depend on the
+    card."""
+    return max(1, min(MAX_SPLITS, -(-L // SPLIT_SLOTS)))
+
+
+def split_ranges(L: int, n_split: int) -> list[tuple[int, int]]:
+    """The contiguous slot ranges [j0, j1) of the kernel's ``n_split``
+    CTAs: ceil(L / n_split) slots each, the last one shorter."""
+    chunk = -(-L // n_split)
+    return [(min(L, r * chunk), min(L, (r + 1) * chunk))
+            for r in range(n_split)]
+
+
+def decode_partials_plain(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, valid: torch.Tensor,
+                          n_split: int, *, scale: Optional[float] = None):
+    """Plain version of one decode cluster's CTAs: for each of the
+    ``n_split`` slot ranges of :func:`split_ranges`, the partial state of
+    q (B, D) against k (B, L, D), v (B, L, Dv) -> (m (n_split, B),
+    l (n_split, B), acc (n_split, B, Dv)), float32.  A range without a
+    valid slot has m = NEG_INF, l = 0 and acc = 0."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    s = torch.einsum("bd,bld->bl", q.float(), k.float()) * scale
+    ok = (valid != 0)[None, :]
+    ms, ls, accs = [], [], []
+    for j0, j1 in split_ranges(k.shape[1], n_split):
+        okr = ok[:, j0:j1]
+        sr = torch.where(okr, s[:, j0:j1], NEG_INF)
+        m = (sr.max(dim=-1).values if j1 > j0
+             else s.new_full((q.shape[0],), NEG_INF))
+        p = torch.where(okr, torch.exp(sr - m[:, None]), 0.0)
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("bl,bld->bd", p, v[:, j0:j1].float()))
+    return torch.stack(ms), torch.stack(ls), torch.stack(accs)
+
+
+def merge_partials_plain(m: torch.Tensor, l: torch.Tensor,
+                         acc: torch.Tensor) -> torch.Tensor:
+    """Merge the partial states of :func:`decode_partials_plain` in rank
+    order, as the cluster's rank 0 does -> (B, Dv) float32.  A range
+    with l = 0 (every slot masked, m = NEG_INF) gets weight 0, whatever
+    its acc holds: with every range masked, exp(m - max) would be 1."""
+    top = m.max(dim=0).values
+    w = torch.where(l > 0, torch.exp(m - top), 0.0)
+    lt = torch.zeros_like(top)
+    out = torch.zeros_like(acc[0])
+    for r in range(m.shape[0]):
+        lt = lt + w[r] * l[r]
+        out = out + w[r][:, None] * acc[r]
+    return out / torch.clamp(lt, min=1e-30)[:, None]
+
+
+def flash_decode_split_plain(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, valid: torch.Tensor, *,
+                             n_split: Optional[int] = None,
+                             scale: Optional[float] = None) -> torch.Tensor:
+    """:func:`flash_decode_plain` computed as the kernel splits it: per
+    slot range, then merged in rank order (``n_split`` defaults to
+    :func:`decode_splits` of L) -> (B, Dv) in q's dtype."""
+    n = decode_splits(k.shape[1]) if n_split is None else n_split
+    out = merge_partials_plain(*decode_partials_plain(q, k, v, valid, n,
+                                                      scale=scale))
+    return out.to(q.dtype)
 
 
 def _fold(k: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -146,7 +230,8 @@ def _launch(q, k, v, valid, out, *, n_heads: int, group: int,
         _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         ok.data_ptr(), out.data_ptr(), DTYPE_CODES[q.dtype],
                         rows, n_heads, group, L, D, Dv, *strides_k,
-                        *strides_v, float(scale), stream), SITE)
+                        *strides_v, float(scale), decode_splits(L), stream),
+                     SITE)
     dispatch.count_launch(SITE)
     dispatch.record(SITE, "cuda")
 
@@ -263,6 +348,28 @@ def flash_attention_forward_plain(q: torch.Tensor, k: torch.Tensor,
     return out, lse
 
 
+def bf16_p_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 causal: bool = True,
+                 scale: Optional[float] = None) -> torch.Tensor:
+    """Per output element (B, S, H, Dv), float32: 2^-7 (Sum_j p_j |v_j|)
+    / l, twice the most that rounding each probability to bfloat16 before
+    P V can move the output (the bfloat16 unit roundoff is 2^-8), which
+    the wgmma kernel does and :func:`flash_attention_forward_plain` does
+    not."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    B, S, H, D = q.shape
+    kv = k.shape[2]
+    qg = _by_group(q, kv, torch.float32)
+    kk = k.float().transpose(1, 2)[:, :, None]
+    vv = v.float().abs().transpose(1, 2)[:, :, None]
+    s = torch.matmul(qg, kk.transpose(-1, -2)) * scale
+    if causal:
+        s = torch.where(_causal_keep(S, S, device=q.device), s, NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    return 2.0 ** -7 * _ungroup(torch.matmul(p, vv) / l)
+
+
 def _check_attn(q, k, v) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not isinstance(t, torch.Tensor):
@@ -288,6 +395,37 @@ def _check_attn(q, k, v) -> None:
         raise ValueError("q, k and v must lie on one device")
 
 
+def _strides(t: torch.Tensor) -> tuple:
+    """t's (batch, position, head) element strides, a size-1 dim given
+    the stride it would have on top of the dim below it: no element is
+    read through it, and TMA takes only 16-byte multiples."""
+    st = list(t.stride())
+    for i in (2, 1, 0):
+        if t.shape[i] == 1:
+            st[i] = st[i + 1] * t.shape[i + 1]
+    return tuple(st[:3])
+
+
+def _tma_ready(t: torch.Tensor) -> bool:
+    """TMA can load bf16 ``t``: a 16-byte aligned base, and strides of
+    multiples of 8 elements."""
+    return t.data_ptr() % 16 == 0 and all(
+        s >= 1 and s % 8 == 0 for s in _strides(t))
+
+
+def attention_variant(q: torch.Tensor, k: torch.Tensor,
+                      v: torch.Tensor) -> str:
+    """The full-sequence kernel's variant for these inputs: ``"wgmma"``
+    for bfloat16 with D == Dv in {64, 128} that TMA can load
+    (:func:`_tma_ready`), else ``"fp32"``, which reads through any
+    strides.  A choice from the inputs alone, never because something
+    failed: the wrapper passes it to the C launcher, which checks it."""
+    D, Dv = q.shape[-1], v.shape[-1]
+    return ("wgmma" if q.dtype == torch.bfloat16 and D == Dv
+            and D in (64, 128) and all(map(_tma_ready, (q, k, v)))
+            else "fp32")
+
+
 def _attention_cuda(q, k, v, causal: bool, scale: float):
     if q.dtype not in DTYPE_CODES:
         raise TypeError(f"the CUDA kernel takes float32 or bfloat16, got "
@@ -302,16 +440,20 @@ def _attention_cuda(q, k, v, causal: bool, scale: float):
     out = torch.empty((B, S, H, Dv), dtype=q.dtype, device=dev)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=dev)
     if out.numel() == 0:
+        dispatch.record(SITE_ATTN, "cuda")
         return out, lse
+    variant = attention_variant(q, k, v)
     fn = _build.function("flash_attention_launch", _ATTN_ARGTYPES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         out.data_ptr(), lse.data_ptr(), DTYPE_CODES[q.dtype],
                         B, S, H, H // kv, D, Dv, int(causal),
-                        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                        float(scale), stream), SITE_ATTN)
-    dispatch.count_launch(SITE_ATTN)
+                        *_strides(q), *_strides(k), *_strides(v),
+                        float(scale), VARIANTS.index(variant), stream),
+                     SITE_ATTN)
+    dispatch.count_launch(SITE_ATTN, variant)
+    dispatch.record(SITE_ATTN, "cuda", variant)
     return out, lse
 
 
@@ -332,9 +474,7 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
                                              scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    out = _attention_cuda(q, k, v, causal, scale)
-    dispatch.record(SITE_ATTN, "cuda")
-    return out
+    return _attention_cuda(q, k, v, causal, scale)
 
 
 def flash_attention_backward(q, k, v, out, lse, dout, *, causal: bool,

@@ -14,7 +14,9 @@ output (1e-4 + 2**-7 of its size), wkv6 within 1e-5 (one step) and 1e-4
 log-sum-exp within 1e-5 + 1e-6 of its size, and its gradients (the
 backward in PyTorch ops from the kernel's output and log-sum-exp, against
 autograd through the plain version) within 1e-5 (float32) and 2**-6
-(bfloat16) of their largest magnitude.
+(bfloat16) of their largest magnitude.  Its bfloat16 output adds
+``kf.bf16_p_bound``: the wgmma variant rounds P to bfloat16 before P V
+(as the TPU's matrix unit did), the plain version keeps it float32.
 """
 
 import numpy as np
@@ -99,6 +101,28 @@ def test_flash_decode_kernel_equals_plain(cuda, L, dtype):
                                rtol=rtol)
 
 
+@pytest.mark.parametrize("L,D", [(128, 128), (129, 128), (777, 64),
+                                 (1016, 128), (4000, 256), (300, 40)])
+def test_flash_decode_splits_equal_plain(cuda, L, D):
+    """One split (L = 128) and many, ragged ranges, a fully masked split,
+    element loads (D = 40), and the split mirror on the same inputs."""
+    gen = torch.Generator().manual_seed(L + D)
+    B = 4
+    q, k, v = (torch.randn(s, generator=gen).to(cuda)
+               for s in ((B, D), (B, L, D), (B, L, D)))
+    valid = _mask(L, 4, gen)
+    n = kf.decode_splits(L)
+    j0, j1 = kf.split_ranges(L, n)[n // 2]
+    valid[j0:j1] = False                     # one split sees no valid slot
+    valid = valid.to(cuda)
+    got = kf.flash_decode(q, k, v, valid)
+    torch.testing.assert_close(got, kf.flash_decode_plain(q, k, v, valid),
+                               atol=1e-5, rtol=0)
+    torch.testing.assert_close(
+        got, kf.flash_decode_split_plain(q, k, v, valid), atol=1e-5, rtol=0)
+    assert torch.equal(got, kf.flash_decode(q, k, v, valid))
+
+
 @pytest.mark.parametrize("H,KV,D", [(16, 16, 128), (8, 2, 64), (4, 1, 256)])
 def test_flash_decode_gqa_kernel_equals_plain(cuda, H, KV, D):
     gen = torch.Generator().manual_seed(H * KV)
@@ -157,7 +181,8 @@ def test_wkv6_batched_kernel_equals_plain(cuda, T, dtype):
 ATTN_CASES = [  # (B, S, H, KV, D, Dv, causal)
     (1, 300, 16, 16, 128, 128, True), (2, 100, 8, 2, 64, 64, True),
     (2, 129, 4, 4, 64, 64, False), (1, 77, 4, 1, 192, 128, True),
-    (1, 70, 2, 2, 256, 256, False), (3, 1, 2, 1, 16, 8, True)]
+    (1, 70, 2, 2, 256, 256, False), (3, 1, 2, 1, 16, 8, True),
+    (2, 1, 4, 2, 128, 128, True), (1, 65, 2, 2, 64, 64, True)]
 
 
 def _attn_inputs(cuda, case, dtype, gen):
@@ -177,12 +202,20 @@ def test_flash_attention_kernel_equals_plain(cuda, case, dtype):
     torch.cuda.synchronize()
     assert dispatch.launches("flash_attention") == before + 1
     assert dispatch.status("flash_attention")["path"] == "cuda"
+    tensor_cores = (dtype == torch.bfloat16 and case[4] == case[5]
+                    and case[4] in (64, 128))
+    assert dispatch.status("flash_attention")["variant"] == (
+        "wgmma" if tensor_cores else "fp32")
     want, want_lse = kf.flash_attention_forward_plain(q, k, v,
                                                       causal=causal)
-    atol, rtol = (1e-5, 0.0) if dtype == torch.float32 else (1e-4, 2.0 ** -7)
     assert out.dtype == dtype and lse.dtype == torch.float32
-    torch.testing.assert_close(out.float(), want.float(), atol=atol,
-                               rtol=rtol)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, want, atol=1e-5, rtol=0)
+    else:
+        bound = kf.bf16_p_bound(q, k, v, causal=causal)
+        diff = (out.float() - want.float()).abs()
+        assert bool((diff <= 1e-4 + 2.0 ** -7 * want.float().abs()
+                     + bound).all()), float(diff.max())
     torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-6)
 
 
@@ -204,18 +237,35 @@ def test_flash_attention_grads_equal_plain_autograd(cuda, case, dtype):
         _close_scaled(g.float(), w.float(), rel)
 
 
+def test_flash_attention_misaligned_strides_take_fp32(cuda):
+    """TMA needs 16-byte strides: a bf16 head dim of 128 read out of rows
+    of 129 runs the fp32 variant, which reads through any strides, and
+    matches the plain version within the float32 variant's tolerance."""
+    q = torch.randn((1, 64, 2, 129), device=cuda,
+                    dtype=torch.bfloat16)[..., :128]
+    out, lse = kf.flash_attention_forward(q, q, q)
+    torch.cuda.synchronize()
+    assert dispatch.status("flash_attention")["variant"] == "fp32"
+    want, want_lse = kf.flash_attention_forward_plain(q, q, q)
+    diff = (out.float() - want.float()).abs()
+    assert bool((diff <= 1e-4 + 2.0 ** -7 * want.float().abs()).all())
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-6)
+
+
 def test_flash_attention_duplicates_are_bit_identical(cuda):
     gen = torch.Generator().manual_seed(5)
-    q, k, v = _attn_inputs(cuda, ATTN_CASES[1], torch.bfloat16, gen)
-    a = kf.flash_attention_forward(q, k, v)
-    b = kf.flash_attention_forward(q, k, v)
-    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
-    dout = torch.randn_like(a[0])
-    ga, gb = ([t.clone().requires_grad_() for t in (q, k, v)]
-              for _ in range(2))
-    da = torch.autograd.grad(kf.flash_attention_gqa(*ga), ga, dout)
-    db = torch.autograd.grad(kf.flash_attention_gqa(*gb), gb, dout)
-    assert all(torch.equal(x, y) for x, y in zip(da, db))
+    for case in (ATTN_CASES[1], ATTN_CASES[0]):     # wgmma, D = 64 and 128
+        q, k, v = _attn_inputs(cuda, case, torch.bfloat16, gen)
+        a = kf.flash_attention_forward(q, k, v)
+        b = kf.flash_attention_forward(q, k, v)
+        assert dispatch.status("flash_attention")["variant"] == "wgmma"
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        dout = torch.randn_like(a[0])
+        ga, gb = ([t.clone().requires_grad_() for t in (q, k, v)]
+                  for _ in range(2))
+        da = torch.autograd.grad(kf.flash_attention_gqa(*ga), ga, dout)
+        db = torch.autograd.grad(kf.flash_attention_gqa(*gb), gb, dout)
+        assert all(torch.equal(x, y) for x, y in zip(da, db))
 
 
 def test_training_path_launches_flash_attention(cuda):
@@ -240,3 +290,26 @@ def test_training_path_launches_flash_attention(cuda):
     assert abs(float(loss) - float(closs)) <= 1e-5 * abs(float(closs))
     for g, w in zip(tree_leaves(grads), tree_leaves(cgrads)):
         _close_scaled(g.cpu(), w, 1e-4)
+
+
+def test_bf16_training_path_launches_the_wgmma_variant(cuda):
+    """In bfloat16 at head dim 64, every layer's attention of a loss and
+    its gradients runs the wgmma variant."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.data import as_tensors, batch_for_step
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.runtime.executor import value_and_grad
+    cfg = get_smoke("olmo-1b").replace(d_model=128, n_heads=2, n_kv_heads=2)
+    assert cfg.head_dim == 64 and cfg.dtype == "bfloat16"
+    model = build_model(cfg)
+    params = model.init(0, device=cuda)
+    fn = lambda p, b: model.loss(p, b)[0]  # noqa: E731
+    before = dispatch.variant_launches("flash_attention").get("wgmma", 0)
+    loss, grads = value_and_grad(fn, params, as_tensors(
+        batch_for_step(cfg, 0, 2, 200), cuda))
+    torch.cuda.synchronize()
+    after = dispatch.variant_launches("flash_attention").get("wgmma", 0)
+    assert after == before + cfg.n_layers
+    assert torch.isfinite(torch.as_tensor(float(loss)))
+    assert all(bool(torch.isfinite(g).all()) for g in tree_leaves(grads))

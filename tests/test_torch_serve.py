@@ -9,6 +9,8 @@ the logits of the two packages agree to float32 rounding
 logits of these prompts, and within the port decoding is deterministic.
 """
 
+import threading
+
 import jax
 import numpy as np
 import pytest
@@ -22,7 +24,8 @@ from repro_torch.launch import serve as tserve
 from repro_torch.models import build_model
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.convert import params_from_reference
-from repro_torch.runtime import RDLBServeExecutor, Request
+from repro_torch.runtime import RDLBServeExecutor, Request, serve_executor
+from repro_torch.runtime.backends import ServeBackend
 from repro_torch.runtime.serve_executor import (FusedGenerator,
                                                 greedy_decode_group)
 
@@ -75,19 +78,46 @@ def _requests(vocab, n, lengths, new, seed):
         lengths)]).astype(np.int32), max_new_tokens=new) for i in range(n)]
 
 
+class _WaitForWorker1(ServeBackend):
+    """A ServeBackend whose other workers hold their chunk until worker
+    1's thread has ended (or ``timeout`` seconds pass).  Worker 1 then
+    takes a request while the others hold theirs, and asks for another
+    while theirs are unfinished, whatever the order the threads run in:
+    with ``fail_at={1: 1}`` it fail-stops holding that second request."""
+
+    timeout = 60.0
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._worker1 = None
+        self._seen = threading.Event()
+
+    def execute(self, chunk, wid):
+        if wid == 1:
+            self._worker1 = threading.current_thread()
+            self._seen.set()
+        elif self._seen.wait(self.timeout):
+            self._worker1.join(self.timeout)
+        return super().execute(chunk, wid)
+
+
 @pytest.mark.parametrize("key", ["dense", "rwkv"])
-def test_threaded_fail_stop_tokens_equal_calm_run(key):
+def test_threaded_fail_stop_tokens_equal_calm_run(key, monkeypatch):
     """Threaded rDLB (SS, P=3) with a worker that fail-stops after one
     request: every request completes, duplicates were issued, and the
-    tokens equal a failure-free run and the reference's generator."""
+    tokens equal a failure-free run and the reference's generator.  The
+    other workers wait for worker 1 (``_WaitForWorker1``), so its
+    fail-stop happens in every run."""
     jm, jp, tm, tp = pair(key)
     vocab = JCONFIGS[key].vocab_size
     spec = api.serve_spec(technique="SS", n_workers=3, threaded=True)
     reqs = _requests(vocab, 6, [5, 9], 3, seed=4)
     ex = RDLBServeExecutor(tm, tp, spec=spec)
-    stats = ex.serve(reqs, fail_at={1: 1})
+    with monkeypatch.context() as m:
+        m.setattr(serve_executor, "ServeBackend", _WaitForWorker1)
+        stats = ex.serve(reqs, fail_at={1: 1})
     assert not stats.hung and stats.n_duplicates >= 1
-    assert 1 in ex.dead
+    assert 1 in ex.dead and stats.by_worker.get(1) == 1
     calm = _requests(vocab, 6, [5, 9], 3, seed=4)
     cstats = RDLBServeExecutor(tm, tp, spec=spec).serve(calm)
     assert not cstats.hung
