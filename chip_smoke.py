@@ -9,10 +9,12 @@ Phases, each fatal when it fails:
 
   1. print the card's name and power limit; build the CUDA kernels from
      ``src/repro_torch/csrc`` and print the build time and ptxas report
-     (registers, shared memory and spills of the wgmma flash_attention
-     and the flash_decode kernels on lines of their own); count the HGMMA
-     (wgmma) and UTMALDG (TMA load) instructions in the built
-     flash_attention wgmma kernel (``cuobjdump -sass``), both required;
+     (registers, shared memory and spills of the wgmma flash_attention,
+     the flash_decode and the two wkv6 kernels on lines of their own);
+     hold the built ``wkv6_batched_smem`` (ctypes) to the wrapper's
+     ``_batched_smem`` at the shapes used; count the HGMMA (wgmma) and
+     UTMALDG (TMA load) instructions in the built flash_attention wgmma
+     kernel (``cuobjdump -sass``), both required;
   2. hold each kernel against its plain PyTorch version on the card, at
      the shapes of the main paths, with the tolerance printed, and time
      both: the kernel as a CUDA graph of launches (``ms``), in a profiler
@@ -22,8 +24,13 @@ Phases, each fatal when it fails:
      flash_decode (olmo-1b's 8 x 16 rows of 128 at L = 1016, 1024, 100
      and 300, float32 and bfloat16, scattered and fully masked blocks,
      with the CTAs per row printed; timed at L = 1016 and 80),
-     wkv6_decode and wkv6_batched (rwkv6-1.6b's 8 x 32 heads of 64,
-     T = 64 and a ragged 37) within float32 rounding;
+     wkv6_decode and wkv6_batched within float32 rounding at
+     rwkv6-1.6b's heads of 64, BH = 32 (one request, the serving path's
+     shape) and 256 (B = 8): decode at both, batched at BH = 32 with
+     T = 37, 64 and 1000 and at BH = 256 with T = 64, with w = 0.01, the
+     state written in place and a repeated launch (bit for bit), each
+     with its column split (CTAs a head) printed and timed beside its
+     bound;
   3. drive the paper's main path through the public API: threaded rDLB
      self-scheduling of the paper's Mandelbrot (512 x 512, 256
      iterations, SS, P=4) and PSIA (20,000 spin images over 16,384
@@ -42,10 +49,11 @@ Phases, each fatal when it fails:
      run's bit for bit, with at least one rDLB duplicate.  A float32 copy
      of each config cut to 2 layers (full width) must give the same
      greedy tokens through the kernels as through their plain versions,
-     both on the card.  Then decode throughput: FusedGenerator at B = 8,
-     S = 64, 64 new tokens, and one profiled call of 8 new tokens for the
-     kernels per token position, the device's busy share and the ops
-     that take the most host time;
+     both on the card.  rwkv6-1.6b also times ``model.prefill`` of one
+     1000-token prompt (B = 1).  Then decode throughput: FusedGenerator
+     at B = 8, S = 64, 64 new tokens, and one profiled call of 8 new
+     tokens for the kernels per token position, the device's busy share
+     and the ops that take the most host time;
   5. training: flash_attention (output and log-sum-exp, and the variant
      that ran) against its plain version at olmo-1b's training shape (16
      heads, S = 2048, D = 128, bfloat16, causal), a ragged GQA shape (8
@@ -526,70 +534,155 @@ def compare_decode_kernels(dev) -> dict:
     print(f"flash_decode,timed L={Ls},cluster={kf.decode_splits(Ls)} CTAs "
           f"per row,ms={short}")
 
-    # wkv6: rwkv6-1.6b's heads at B = 8
-    dk = rwkv.rwkv_head_dim
-    BH = B * rwkv.d_model // dk
+    rows.update(compare_wkv6_kernels(dev))
+    return rows
 
-    def wkv_inputs(T, dtype):
-        lead = (BH, T) if T else (BH,)
-        r, k, v = (torch.randn(lead + (dk,), generator=gen)
-                   for _ in range(3))
-        w = torch.exp(-torch.exp(torch.randn(lead + (dk,), generator=gen)
-                                 * 0.5 - 1.0))
-        u = torch.randn((BH, dk), generator=gen)
-        s = torch.randn((BH, dk, dk), generator=gen)
-        return [x.to(dev, dtype) for x in (r, k, v, w, u)] + [s.to(dev)]
+
+# wkv6 shapes: rwkv6-1.6b's 32 heads of 64 at B = 1 (BH = 32: the serving
+# path decodes each request on its own, one prompt length per group) and
+# at B = 8 (BH = 256: FusedGenerator's throughput shape); the batched
+# kernel at the served prompt lengths, and at T = 64.
+WKV_DECODE_BH = (32, 256)
+WKV_BATCHED = ((32, 37), (32, 64), (32, 1000), (256, 64))
+# The row of the {"kernels": [...]} line: the shape earlier PRs timed.
+WKV_ROW = {"wkv6_decode": 256, "wkv6_batched": (256, 64)}
+
+
+def wkv_inputs(dev, gen, BH, T, dk, dtype, *, w=None):
+    """r, k, v, w, u in ``dtype`` and a float32 state; T = 0 gives one
+    step's (BH, dk) inputs.  w as the model makes it (exp(-exp(x)) near
+    e^-1), or the constant ``w``."""
+    import torch
+    lead = (BH, T) if T else (BH,)
+    r, k, v = (torch.randn(lead + (dk,), generator=gen) for _ in range(3))
+    ww = torch.exp(-torch.exp(torch.randn(lead + (dk,), generator=gen)
+                              * 0.5 - 1.0))
+    if w is not None:
+        ww = torch.full_like(ww, w)
+    u = torch.randn((BH, dk), generator=gen)
+    s = torch.randn((BH, dk, dk), generator=gen)
+    return [x.to(dev, dtype) for x in (r, k, v, ww, u)] + [s.to(dev)]
+
+
+def wkv6_decode_bound(BH: int, dk: int, dv: int) -> tuple[float, str]:
+    """bf16 r, k, w, u and v read, the float32 state read and written, y
+    written; 7 operations per state element."""
+    n_bytes = 2 * (4 * BH * dk + BH * dv) + 4 * (2 * BH * dk * dv + BH * dv)
+    return bound_ms(n_bytes, 7 * BH * dk * dv)
+
+
+def wkv6_batched_bound(BH: int, T: int, dk: int, dv: int,
+                       chunk: int) -> tuple[float, str]:
+    """bf16 r, k, w (T dk), v (T dv) and u read, y (float32) written, the
+    float32 state read and written."""
+    n_bytes = (2 * (3 * BH * T * dk + BH * T * dv + BH * dk)
+               + 4 * BH * T * dv + 8 * BH * dk * dv)
+    return bound_ms(n_bytes, wkv6_batched_ops(BH, T, dk, dv, chunk))
+
+
+def compare_wkv6_kernels(dev) -> dict:
+    """wkv6_decode and wkv6_batched against their plain versions at
+    rwkv6-1.6b's head shape, at each of WKV_DECODE_BH and WKV_BATCHED
+    (with w = 0.01, the state written in place and a second launch that
+    must repeat the first bit for bit), each printed with its column
+    split, and timed there beside its bound."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import rwkv6_scan as kw
+
+    gen = torch.Generator().manual_seed(4)
+    rwkv = get_config("rwkv6-1.6b")
+    dk = dv = rwkv.rwkv_head_dim
+    rows = {}
 
     def rel_err(got, want):
         return float((got - want).abs().max() / want.abs().max())
 
-    err = 0.0
-    for dtype in (torch.float32, torch.bfloat16):
-        ins = wkv_inputs(0, dtype)
-        y, s = kw.wkv6_decode(*ins)
-        py, ps = kw.wkv6_decode_plain(*ins)
+    def check(name, shape, tol, got, want):
+        (y, s), (py, ps) = got, want
+        if not (torch.isfinite(y).all() and torch.isfinite(s).all()):
+            fail(f"{name} ({shape}) returned a non-finite value")
         e = max(rel_err(y, py), rel_err(s, ps))
-        print(f"compare,wkv6_decode,BH={BH},{dk}x{dk},{dtype},"
-              f"max_rel_err={e},tolerance=1e-05")
-        if not e <= 1e-5:
-            fail(f"wkv6_decode differs from its plain version by {e}")
-        err = max(err, float((y - py).abs().max()),
-                  float((s - ps).abs().max()))
-    ins = wkv_inputs(0, torch.bfloat16)
-    state = ins[5].clone()
-    n_bytes = 2 * 5 * BH * dk + 4 * (2 * BH * dk * dk + BH * dk)
-    b, by = bound_ms(n_bytes, 7 * BH * dk * dk)
-    _report(rows, "wkv6_decode", source="src/repro_torch/csrc/wkv6.cu",
-            replaces="src/repro/kernels/rwkv6_scan.py:124",
-            shape=f"BH={BH} {dk}x{dk}, bf16 inputs, state in place",
-            max_abs_err=err, bound_ms=b, bound_by=by)
-    _time(rows, "wkv6_decode",
-          lambda: kw.wkv6_decode(*ins[:5], state, out_state=state),
-          lambda: kw.wkv6_decode_plain(*ins), "wkv6_decode_kernel", 200)
+        print(f"compare,{name},{shape},max_rel_err={e},tolerance={tol}")
+        if not e <= tol:
+            fail(f"{name} ({shape}) differs from its plain version by {e} "
+                 f"of its largest magnitude")
+        return max(float((y - py).abs().max()), float((s - ps).abs().max()))
+
+    def repeats_in_place(name, fn, ins, shape):
+        """Out of place twice, then in place: the same bits each time."""
+        y1, s1 = fn(*ins)
+        y2, s2 = fn(*ins)
+        state = ins[5].clone()
+        y3, _ = fn(*ins[:5], state, out_state=state)
+        if not (torch.equal(y1, y2) and torch.equal(s1, s2)
+                and torch.equal(y1, y3) and torch.equal(s1, state)):
+            fail(f"{name} ({shape}): a second launch or the in-place "
+                 f"launch differs from the first")
+
+    err, timed = 0.0, []
+    for BH in WKV_DECODE_BH:
+        n_col = kw.col_split(BH, dv)
+        for dtype, w in ((torch.float32, None), (torch.bfloat16, None),
+                         (torch.bfloat16, 0.01)):
+            ins = wkv_inputs(dev, gen, BH, 0, dk, dtype, w=w)
+            shape = (f"BH={BH},{dk}x{dv},{dtype},w={w or 'model'},"
+                     f"n_col={n_col}")
+            err = max(err, check("wkv6_decode", shape, 1e-5,
+                                 kw.wkv6_decode(*ins),
+                                 kw.wkv6_decode_plain(*ins)))
+        repeats_in_place("wkv6_decode", kw.wkv6_decode, ins, shape)
+        ins = wkv_inputs(dev, gen, BH, 0, dk, torch.bfloat16)
+        state = ins[5].clone()
+        launch = lambda: kw.wkv6_decode(  # noqa: E731
+            *ins[:5], state, out_state=state)
+        ms = graph_ms(launch, 200)
+        b, by = wkv6_decode_bound(BH, dk, dv)
+        timed.append(dict(kernel="wkv6_decode", BH=BH, ms=ms, bound_ms=b,
+                          bound_by=by))
+        print(f"wkv6_decode,timed BH={BH},n_col={n_col},ms={ms},"
+              f"bound_ms={b} ({by})")
+        if BH == WKV_ROW["wkv6_decode"]:
+            _report(rows, "wkv6_decode",
+                    source="src/repro_torch/csrc/wkv6.cu",
+                    replaces="src/repro/kernels/rwkv6_scan.py:124",
+                    shape=f"BH={BH} {dk}x{dv}, bf16 inputs, state in place",
+                    bound_ms=b, bound_by=by)
+            _time(rows, "wkv6_decode", launch,
+                  lambda: kw.wkv6_decode_plain(*ins), "wkv6_decode", 200)
+    rows["wkv6_decode"]["max_abs_err"] = err
 
     err = 0.0
-    for T in (64, 37):
-        ins = wkv_inputs(T, torch.bfloat16)
-        y, s = kw.wkv6_batched(*ins)
-        py, ps = kw.wkv6_batched_plain(*ins)
-        e = max(rel_err(y, py), rel_err(s, ps))
-        print(f"compare,wkv6_batched,BH={BH},T={T},{dk}x{dk},bf16,"
-              f"chunk={kw.CHUNK},max_rel_err={e},tolerance=1e-04")
-        if not e <= 1e-4:
-            fail(f"wkv6_batched differs from its plain version by {e}")
-        err = max(err, float((y - py).abs().max()),
-                  float((s - ps).abs().max()))
-    T = 64
-    ins = wkv_inputs(T, torch.bfloat16)
-    n_bytes = (2 * (4 * BH * T * dk + BH * dk) + 4 * BH * T * dk
-               + 8 * BH * dk * dk)
-    b, by = bound_ms(n_bytes, wkv6_batched_ops(BH, T, dk, dk, kw.CHUNK))
-    _report(rows, "wkv6_batched", source="src/repro_torch/csrc/wkv6.cu",
-            replaces="src/repro/kernels/rwkv6_scan.py:69",
-            shape=f"BH={BH} T={T} {dk}x{dk}, bf16 inputs, chunk "
-                  f"{kw.CHUNK}", max_abs_err=err, bound_ms=b, bound_by=by)
-    _time(rows, "wkv6_batched", lambda: kw.wkv6_batched(*ins),
-          lambda: kw.wkv6_batched_plain(*ins), "wkv6_batched_kernel", 100)
+    for BH, T in WKV_BATCHED:
+        n_col = kw.col_split(BH, dv)
+        cases = [("model", None)] + ([("0.01", 0.01)] if T == 64 else [])
+        for label, w in cases:
+            ins = wkv_inputs(dev, gen, BH, T, dk, torch.bfloat16, w=w)
+            shape = (f"BH={BH},T={T},{dk}x{dv},bf16,w={label},"
+                     f"chunk={kw.CHUNK},n_col={n_col}")
+            err = max(err, check("wkv6_batched", shape, 1e-4,
+                                 kw.wkv6_batched(*ins),
+                                 kw.wkv6_batched_plain(*ins)))
+        repeats_in_place("wkv6_batched", kw.wkv6_batched, ins, shape)
+        ins = wkv_inputs(dev, gen, BH, T, dk, torch.bfloat16)
+        launch = lambda: kw.wkv6_batched(*ins)  # noqa: E731
+        ms = graph_ms(launch, 100 if T < 1000 else 20)
+        b, by = wkv6_batched_bound(BH, T, dk, dv, kw.CHUNK)
+        timed.append(dict(kernel="wkv6_batched", BH=BH, T=T, ms=ms,
+                          bound_ms=b, bound_by=by))
+        print(f"wkv6_batched,timed BH={BH},T={T},n_col={n_col},ms={ms},"
+              f"bound_ms={b} ({by})")
+        if (BH, T) == WKV_ROW["wkv6_batched"]:
+            _report(rows, "wkv6_batched",
+                    source="src/repro_torch/csrc/wkv6.cu",
+                    replaces="src/repro/kernels/rwkv6_scan.py:69",
+                    shape=f"BH={BH} T={T} {dk}x{dv}, bf16 inputs, chunk "
+                          f"{kw.CHUNK}", bound_ms=b, bound_by=by)
+            _time(rows, "wkv6_batched", launch,
+                  lambda: kw.wkv6_batched_plain(*ins), "wkv6_batched", 100)
+    rows["wkv6_batched"]["max_abs_err"] = err
+    for name in rows:
+        rows[name]["shapes"] = [t for t in timed if t["kernel"] == name]
     return rows
 
 
@@ -732,6 +825,35 @@ def decode_throughput(model, params) -> dict:
                               for e in host])
 
 
+# One prefill of the longest served prompt, alone (B = 1): the shape at
+# which wkv6_batched runs its longest chain of chunks.
+PREFILL_ARCH = "rwkv6-1.6b"
+PREFILL_T = SERVE_PROMPTS[-1]
+
+
+def time_prefill(model, params, reps: int = 3) -> list:
+    """Wall seconds of ``reps`` calls of ``model.prefill`` on one
+    PREFILL_T-token prompt, each on a fresh cache and ending in
+    ``torch.cuda.synchronize()``, after one warm-up call."""
+    import numpy as np
+    import torch
+    dev = params["embed"].device
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, model.cfg.vocab_size, size=(1, PREFILL_T))).to(dev)
+    walls = []
+    for _ in range(reps + 1):
+        cache = model.init_cache(1, PREFILL_T, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = model.prefill(params, cache, tokens)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    if logits.shape[:2] != (1, 1) or not torch.isfinite(logits).all():
+        fail(f"{model.cfg.name}: prefill returned {tuple(logits.shape)} "
+             f"or non-finite logits")
+    return [round(w, 6) for w in walls[1:]]
+
+
 SERVE_SITES = {"olmo-1b": ("flash_decode", "flash_attention"),
                "rwkv6-1.6b": ("wkv6_decode", "wkv6_batched")}
 
@@ -785,6 +907,10 @@ def drive_serving(dev, arch: str) -> dict:
           f"position={tp['kernels_per_position']:.1f},device busy share="
           f"{tp['busy_share']:.3f},top host ops (name, calls, self ms)="
           f"{tp['top_host_ops']}")
+    if arch == PREFILL_ARCH:
+        walls = time_prefill(model, params)
+        print(f"prefill,{arch},B=1,T={PREFILL_T},{cfg.dtype}: wall_s of "
+              f"{len(walls)} model.prefill calls after a warm-up={walls}")
     del model, params
     torch.cuda.empty_cache()
     same = check_plain_tokens(dev, arch)
@@ -1184,6 +1310,29 @@ def sass_counts(build, kernel: str) -> dict:
     return counts
 
 
+def check_wkv6_smem(build) -> None:
+    """``wkv6_batched_smem`` of the built library (ctypes) against the
+    wrapper's ``_batched_smem`` at the shapes phase 2 and the serving path
+    use; fails on any difference."""
+    import ctypes
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import rwkv6_scan as kw
+    fn = build.library().wkv6_batched_smem
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_size_t
+    dk = dv = get_config("rwkv6-1.6b").rwkv_head_dim
+    for BH in sorted({bh for bh, _ in WKV_BATCHED} | {1}):
+        n_col = kw.col_split(BH, dv)
+        for itemsize in (2, 4):
+            c_bytes = fn(dk, dv, kw.CHUNK, n_col, itemsize)
+            py_bytes = kw._batched_smem(dk, dv, kw.CHUNK, n_col, itemsize)
+            print(f"smem,wkv6_batched,BH={BH},n_col={n_col},"
+                  f"itemsize={itemsize},c={c_bytes},python={py_bytes}")
+            if c_bytes != py_bytes or py_bytes > kw.MAX_SMEM:
+                fail(f"wkv6_batched shared memory: C {c_bytes} B, Python "
+                     f"{py_bytes} B (limit {kw.MAX_SMEM})")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1214,8 +1363,9 @@ def main() -> int:
             print(f"ptxas: {line.strip()}")
     # the redesigned kernels' registers, shared memory and spills
     for src, name, regs, spills in ptxas_entries(_build.build_log):
-        if "wgmma" in name or src == "flash_decode.cu":
+        if "wgmma" in name or src in ("flash_decode.cu", "wkv6.cu"):
             print(f"ptxas,{src},{name},{regs},{spills}")
+    check_wkv6_smem(_build)
     sass = sass_counts(_build, "flash_attention_wgmma")
     print(f"sass,flash_attention_wgmma_kernel,HGMMA={sass['HGMMA']},"
           f"UTMALDG={sass['UTMALDG']}")

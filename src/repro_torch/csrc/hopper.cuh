@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks in inline PTX, shared by the kernels of
-// this directory: mbarriers, TMA tile loads, wgmma and its shared-memory
-// descriptors, and thread-block-cluster barriers and distributed shared
-// memory.  Device code only; each helper is one or a few instructions.
+// this directory: mbarriers, TMA tile loads, cp.async, wgmma and its
+// shared-memory descriptors, and thread-block-cluster barriers and
+// distributed shared memory.  Device code only; each helper is one or a
+// few instructions.
 #pragma once
 
 #include <cstdint>
@@ -193,6 +194,24 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
         "r"(scale_d));
 }
 
+// ---------------------------------------------------------------- cp.async
+// 16 bytes from device memory to shared memory, asynchronously; both
+// addresses 16-byte aligned.  Completion is waited for by commit group.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's commit groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // ------------------------------------------------- thread-block clusters
 // Every thread of every CTA of the cluster: writes to shared memory
 // before it are visible to the cluster's reads after it.
@@ -200,6 +219,17 @@ __device__ __forceinline__ void cluster_sync() {
   asm volatile(
       "barrier.cluster.arrive.release.aligned;\n"
       "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// cluster_sync in two halves, for a CTA that has published nothing yet
+// but must know that every CTA of the cluster has started before it
+// touches their shared memory: arrive on entry, wait just before the
+// first remote access, and do the work between while the others start.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // The float at the same shared-memory offset as `local` in the CTA of
@@ -216,6 +246,19 @@ __device__ __forceinline__ float ld_cluster_f32(const float* local,
                : "r"(remote)
                : "memory");
   return v;
+}
+
+// Stores v at the shared-memory offset of `local` in the CTA of cluster
+// rank `rank` (distributed shared memory); a cluster barrier makes it
+// visible there.
+__device__ __forceinline__ void st_cluster_f32(float* local, uint32_t rank,
+                                               float v) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_addr(local)), "r"(rank));
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(remote), "f"(v)
+               : "memory");
 }
 
 }  // namespace hopper

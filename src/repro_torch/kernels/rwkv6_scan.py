@@ -39,9 +39,61 @@ SITE_BATCHED = "wkv6_batched"
 CHUNK = 32
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_SMEM = 232_448                 # bytes of shared memory a CTA may use
+#: CTAs the column split aims for (two a streaming multiprocessor of the
+#: H100), the fewest state columns a CTA keeps, and the most CTAs a head
+#: is split over (the portable thread-block cluster size)
+TARGET_CTAS = 2 * 132
+MIN_COLS = 8
+MAX_COLS_SPLIT = 8
+#: state rows whose y terms one decode thread sums into one partial
+ROW_GROUP = 4
+#: threads of a wkv6_batched CTA (csrc/wkv6.cu kBatchedThreads)
+BATCHED_THREADS = 256
 _P = ctypes.c_void_p
-_DECODE_ARGTYPES = [_P] * 8 + [ctypes.c_int] * 4 + [_P]
-_BATCHED_ARGTYPES = [_P] * 8 + [ctypes.c_int] * 6 + [_P]
+_DECODE_ARGTYPES = [_P] * 8 + [ctypes.c_int] * 5 + [_P]
+_BATCHED_ARGTYPES = [_P] * 8 + [ctypes.c_int] * 7 + [_P]
+
+
+# ------------------------------------------------------------ column split
+def col_split(BH: int, dv: int) -> int:
+    """CTAs each (batch, head) row's dv state columns are split over, in
+    both kernels: doubled from 1 while BH x n_col is under TARGET_CTAS,
+    each CTA keeps at least MIN_COLS columns and n_col divides dv, up to
+    MAX_COLS_SPLIT (one cluster).  A function of the shapes alone, so the
+    kernels' summation order, and with it their results, does not depend
+    on the card."""
+    n = 1
+    while (BH * n < TARGET_CTAS and 2 * n <= MAX_COLS_SPLIT
+           and dv % (2 * n) == 0 and dv // (2 * n) >= MIN_COLS):
+        n *= 2
+    return n
+
+
+def col_ranges(dv: int, n_col: int) -> list[tuple[int, int]]:
+    """The state columns [j0, j1) of each of a row's ``n_col`` CTAs."""
+    cw = dv // n_col
+    return [(r * cw, (r + 1) * cw) for r in range(n_col)]
+
+
+def pair_ranges(c: int, n_col: int) -> list[tuple[int, int]]:
+    """The pairs of a c-row chunk's matrix A that each rank of a
+    ``wkv6_batched`` cluster computes: pair p = t (t + 1) / 2 + s numbers
+    (t, s <= t) row by row, and rank r takes the p in its range
+    [p0, p1), ceil(P / n_col) pairs each (P = c (c + 1) / 2), the last
+    ones shorter."""
+    P = c * (c + 1) // 2
+    per = -(-P // n_col)
+    return [(min(P, r * per), min(P, (r + 1) * per)) for r in range(n_col)]
+
+
+def pair_of(p: int) -> tuple[int, int]:
+    """(t, s) of pair number p."""
+    t = int(((8 * p + 1) ** 0.5 - 1) / 2)
+    while t * (t + 1) // 2 > p:
+        t -= 1
+    while (t + 1) * (t + 2) // 2 <= p:
+        t += 1
+    return t, p - t * (t + 1) // 2
 
 
 # ------------------------------------------------------------ plain versions
@@ -77,6 +129,87 @@ def wkv6_batched_plain(r, k, v, w, u, state, *, chunk: int = CHUNK):
         ys.append(A @ vv + (rr * torch.exp(la_prev)) @ S)
         tail = kk * torch.exp(la[:, -1:] - la)               # (BH, c, dk)
         S = torch.exp(la[:, -1])[:, :, None] * S + tail.transpose(1, 2) @ vv
+    return torch.cat(ys, dim=1), S
+
+
+# --------------------------------------------- mirrors of the kernels' split
+# Used by the tests: the kernels' decomposition on plain ops, held against
+# the plain versions above (the same terms, summed in another order).
+def wkv6_decode_split_plain(r, k, v, w, u, state, *,
+                            n_col: Optional[int] = None):
+    """:func:`wkv6_decode_plain` as the kernel splits it: each of the
+    ``n_col`` CTAs of a row (default :func:`col_split`) takes the state
+    columns of :func:`col_ranges`; y_j sums its rows' terms in groups of
+    ROW_GROUP rows, each group in row order, and the groups' partials in
+    group order."""
+    BH, dk = r.shape
+    dv = v.shape[-1]
+    n_col = col_split(BH, dv) if n_col is None else n_col
+    rf, kf, vf, wf, uf = (x.float() for x in (r, k, v, w, u))
+    S = state.float()
+    ys, news = [], []
+    for j0, j1 in col_ranges(dv, n_col):
+        Sj = S[:, :, j0:j1]
+        kv = kf[:, :, None] * vf[:, None, j0:j1]
+        terms = rf[:, :, None] * (Sj + uf[:, :, None] * kv)
+        y = torch.zeros_like(terms[:, 0])
+        for g0 in range(0, dk, ROW_GROUP):
+            part = torch.zeros_like(y)
+            for i in range(g0, min(dk, g0 + ROW_GROUP)):
+                part = part + terms[:, i]
+            y = y + part
+        ys.append(y)
+        news.append(wf[:, :, None] * Sj + kv)
+    return torch.cat(ys, 1), torch.cat(news, 2)
+
+
+def pairwise_plain(rr, kk, uf, la, la_prev, n_col: int):
+    """One chunk's matrix A (BH, c, c), lower triangle and diagonal, as a
+    ``wkv6_batched`` cluster computes it: rank by rank, each its pairs of
+    :func:`pair_ranges`, every pair once."""
+    BH, c, _ = rr.shape
+    A = rr.new_zeros((BH, c, c))
+    for p0, p1 in pair_ranges(c, n_col):
+        if p0 == p1:
+            continue
+        t, s = (torch.tensor(x) for x in zip(*map(pair_of, range(p0, p1))))
+        diag = (t == s)[None, :, None]
+        decay = torch.exp(torch.where(diag, 0.0,
+                                      la_prev[:, t] - la[:, s]))
+        A[:, t, s] = (rr[:, t] * kk[:, s]
+                      * torch.where(diag, uf[:, None, :], decay)).sum(-1)
+    return A
+
+
+def wkv6_batched_split_plain(r, k, v, w, u, state, *, chunk: int = CHUNK,
+                             n_col: Optional[int] = None):
+    """:func:`wkv6_batched_plain` as the kernel splits it: a row's
+    ``n_col`` CTAs (default :func:`col_split`) share one matrix A a chunk,
+    each rank computing its pairs (:func:`pairwise_plain`), and each CTA
+    computes y and the carried state for its columns of
+    :func:`col_ranges` alone."""
+    BH, T, dk = r.shape
+    dv = v.shape[-1]
+    n_col = col_split(BH, dv) if n_col is None else n_col
+    S = state.float()
+    uf = u.float()
+    ys = []
+    for t0 in range(0, T, chunk):
+        c = min(chunk, T - t0)
+        rr, kk, vv, ww = (x[:, t0:t0 + c].float() for x in (r, k, v, w))
+        la = torch.cumsum(torch.log(torch.clamp(ww, min=1e-38)), dim=1)
+        la_prev = torch.cat([torch.zeros_like(la[:, :1]), la[:, :-1]], 1)
+        A = pairwise_plain(rr, kk, uf, la, la_prev, n_col)
+        rh = rr * torch.exp(la_prev)
+        tail = (kk * torch.exp(la[:, -1:] - la)).transpose(1, 2)
+        dec = torch.exp(la[:, -1])[:, :, None]
+        y_cols, s_cols = [], []
+        for j0, j1 in col_ranges(dv, n_col):
+            vj, Sj = vv[:, :, j0:j1], S[:, :, j0:j1]
+            y_cols.append(A @ vj + rh @ Sj)
+            s_cols.append(dec * Sj + tail @ vj)
+        ys.append(torch.cat(y_cols, 2))
+        S = torch.cat(s_cols, 2)
     return torch.cat(ys, dim=1), S
 
 
@@ -162,18 +295,30 @@ def wkv6_decode(r, k, v, w, u, state, *,
             _build.check(fn(r.data_ptr(), k.data_ptr(), v.data_ptr(),
                             w.data_ptr(), u.data_ptr(), state.data_ptr(),
                             y.data_ptr(), dst.data_ptr(),
-                            DTYPE_CODES[r.dtype], BH, dk, dv, _stream(dev)),
-                         SITE_DECODE)
+                            DTYPE_CODES[r.dtype], BH, dk, dv,
+                            col_split(BH, dv), _stream(dev)), SITE_DECODE)
         dispatch.count_launch(SITE_DECODE)
     dispatch.record(SITE_DECODE, "cuda")
     return y, dst
 
 
-def _batched_smem(dk: int, dv: int, chunk: int) -> int:
+def _batched_smem(dk: int, dv: int, chunk: int, n_col: int,
+                  itemsize: int) -> int:
     """Dynamic shared memory (bytes) of one ``wkv6_batched`` CTA, as
-    ``wkv6_batched_smem`` in ``csrc/wkv6.cu`` computes it."""
-    return 4 * (chunk * (3 * (dk + 1) + dv) + dk * dv + chunk * chunk
-                + 2 * dk)
+    ``wkv6_batched_smem`` in ``csrc/wkv6.cu`` computes it: two stages of
+    a chunk's raw r, k, w (chunk x dk) and v (chunk x its dv / n_col
+    columns), then float32: the state twice and v (columns padded to 4),
+    r, k, log decay, r under decay and the k tail (chunk x (dk + 1)
+    each), A twice (by chunk parity, rows of chunk + 1), u, the chunk's
+    decay, and the row blocks' log-decay totals (BATCHED_THREADS // dk
+    blocks a column)."""
+    cw = dv // n_col
+    cwp = -(-cw // 4) * 4
+    stage = -(-itemsize * (3 * chunk * dk + chunk * cw) // 16) * 16
+    blocks = BATCHED_THREADS // dk * dk if dk < BATCHED_THREADS else dk
+    return 2 * stage + 4 * (2 * dk * cwp + chunk * cwp
+                            + 5 * chunk * (dk + 1) + 2 * chunk * (chunk + 1)
+                            + 2 * dk + blocks)
 
 
 def wkv6_batched(r, k, v, w, u, state, *, chunk: int = CHUNK,
@@ -201,7 +346,8 @@ def wkv6_batched(r, k, v, w, u, state, *, chunk: int = CHUNK,
     _contiguous(r, k, v, w, u, state)
     BH, T, dk = r.shape
     dv = v.shape[-1]
-    smem = _batched_smem(dk, dv, chunk)
+    n_col = col_split(BH, dv)
+    smem = _batched_smem(dk, dv, chunk, n_col, r.element_size())
     if smem > MAX_SMEM:
         raise ValueError(f"dk={dk}, dv={dv}, chunk={chunk} need {smem} B "
                          f"of shared memory, above the {MAX_SMEM} B a CTA "
@@ -215,7 +361,7 @@ def wkv6_batched(r, k, v, w, u, state, *, chunk: int = CHUNK,
                             w.data_ptr(), u.data_ptr(), state.data_ptr(),
                             y.data_ptr(), dst.data_ptr(),
                             DTYPE_CODES[r.dtype], BH, T, dk, dv, chunk,
-                            _stream(dev)), SITE_BATCHED)
+                            n_col, _stream(dev)), SITE_BATCHED)
         dispatch.count_launch(SITE_BATCHED)
     dispatch.record(SITE_BATCHED, "cuda")
     return y, dst

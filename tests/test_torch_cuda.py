@@ -139,13 +139,17 @@ def test_flash_decode_gqa_kernel_equals_plain(cuda, H, KV, D):
                        torch.zeros_like(got))
 
 
-def _wkv(cuda, BH, T, dk, dtype, gen):
+def _wkv(cuda, BH, T, dk, dtype, gen, w=None):
+    """Inputs on the card; w uniform in [0.05, 0.95], or the constant
+    ``w``."""
     lead = (BH, T) if T else (BH,)
     r, k, v = (torch.randn(lead + (dk,), generator=gen) for _ in range(3))
-    w = torch.rand(lead + (dk,), generator=gen) * 0.9 + 0.05
+    ww = torch.rand(lead + (dk,), generator=gen) * 0.9 + 0.05
+    if w is not None:
+        ww = torch.full_like(ww, w)
     u = torch.randn((BH, dk), generator=gen)
     s = torch.randn((BH, dk, dk), generator=gen)
-    return ([t.to(cuda, dtype) for t in (r, k, v, w, u)]
+    return ([t.to(cuda, dtype) for t in (r, k, v, ww, u)]
             + [s.to(cuda)])
 
 
@@ -154,28 +158,86 @@ def _close_scaled(got, want, rel):
                                atol=rel * float(want.abs().max()))
 
 
+def _repeats_in_place(fn, ins, y, s):
+    """A second launch gives the first one's bits, and so does the launch
+    that writes the new state over the old one."""
+    y2, s2 = fn(*ins)
+    assert torch.equal(y2, y) and torch.equal(s2, s)
+    state = ins[5].clone()
+    y3, out = fn(*ins[:5], state, out_state=state)
+    assert out is state
+    assert torch.equal(y3, y) and torch.equal(state, s)
+
+
+# (BH, w): rwkv6-1.6b's heads at B = 8 and B = 1 (the serving path's
+# shape, 8 CTAs a head), and strong decay
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_wkv6_decode_kernel_equals_plain(cuda, dtype):
-    ins = _wkv(cuda, 256, 0, 64, dtype, torch.Generator().manual_seed(1))
+@pytest.mark.parametrize("BH,w", [(256, None), (32, None), (32, 0.01)])
+def test_wkv6_decode_kernel_equals_plain(cuda, BH, w, dtype):
+    ins = _wkv(cuda, BH, 0, 64, dtype, torch.Generator().manual_seed(BH),
+               w=w)
     y, s = kw.wkv6_decode(*ins)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
     want_y, want_s = kw.wkv6_decode_plain(*ins)
     _close_scaled(y, want_y, 1e-5)
     _close_scaled(s, want_s, 1e-5)
-    state = ins[5].clone()                   # in place, as decode uses it
-    y2, out = kw.wkv6_decode(*ins[:5], state, out_state=state)
-    assert out is state
-    assert torch.equal(y2, y) and torch.equal(state, s)
+    _repeats_in_place(kw.wkv6_decode, ins, y, s)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("T", [64, 37, 1])
-def test_wkv6_batched_kernel_equals_plain(cuda, T, dtype):
-    ins = _wkv(cuda, 64, T, 64, dtype, torch.Generator().manual_seed(T))
+@pytest.mark.parametrize("BH,T,w", [
+    (64, 64, None), (64, 37, None), (64, 1, None), (32, 1000, None),
+    (32, 37, None), (32, 64, 0.01)])
+def test_wkv6_batched_kernel_equals_plain(cuda, BH, T, w, dtype):
+    ins = _wkv(cuda, BH, T, 64, dtype, torch.Generator().manual_seed(T),
+               w=w)
     y, s = kw.wkv6_batched(*ins)
     torch.cuda.synchronize()
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
     want_y, want_s = kw.wkv6_batched_plain(*ins)
     _close_scaled(y, want_y, 1e-4)
     _close_scaled(s, want_s, 1e-4)
+    _repeats_in_place(kw.wkv6_batched, ins, y, s)
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` one element past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+# dk = 16 (rwkv6-smoke's head dim: 2 CTAs a head, and the prefill body for
+# any dk) and inputs one element off 16 bytes (the element-wise loads), at
+# the serving path's BH = 32; the batched T = 100 is four chunks, the last
+# ragged, so both parities of A are reused
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dk,offset", [(16, False), (16, True), (64, True)])
+@pytest.mark.parametrize("kernel", ["wkv6_decode", "wkv6_batched"])
+def test_wkv6_kernels_at_other_head_dims_and_alignments(cuda, kernel, dk,
+                                                         offset, dtype):
+    T, tol = (0, 1e-5) if kernel == "wkv6_decode" else (100, 1e-4)
+    fn, plain = getattr(kw, kernel), getattr(kw, kernel + "_plain")
+    ins = _wkv(cuda, 32, T, dk, dtype, torch.Generator().manual_seed(dk))
+    if offset:
+        ins = [_misaligned(t) for t in ins]
+        assert all(t.data_ptr() % 16 for t in ins)
+    before = dispatch.launches(kernel)
+    y, s = fn(*ins)
+    torch.cuda.synchronize()
+    assert dispatch.launches(kernel) == before + 1
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    want_y, want_s = plain(*ins)
+    _close_scaled(y, want_y, tol)
+    _close_scaled(s, want_s, tol)
+    y2, s2 = fn(*ins)
+    assert torch.equal(y2, y) and torch.equal(s2, s)
+    state = _misaligned(ins[5]) if offset else ins[5].clone()
+    y3, out = fn(*ins[:5], state, out_state=state)
+    assert out is state
+    assert torch.equal(y3, y) and torch.equal(state, s)
 
 
 ATTN_CASES = [  # (B, S, H, KV, D, Dv, causal)
