@@ -10,7 +10,8 @@ Phases, each fatal when it fails:
   1. print the card's name and power limit; build the CUDA kernels from
      ``src/repro_torch/csrc`` and print the build time and ptxas report
      (registers, shared memory and spills of the wgmma flash_attention,
-     the flash_decode and the two wkv6 kernels on lines of their own);
+     the flash_decode, the two wkv6, the mandelbrot and the spin_image
+     kernels on lines of their own);
      hold the built ``wkv6_batched_smem`` (ctypes) to the wrapper's
      ``_batched_smem`` at the shapes used; count the HGMMA (wgmma) and
      UTMALDG (TMA load) instructions in the built flash_attention wgmma
@@ -20,7 +21,18 @@ Phases, each fatal when it fails:
      both: the kernel as a CUDA graph of launches (``ms``), in a profiler
      trace (``trace_ms``) and per back-to-back call (``call_ms``), and,
      where one PyTorch call computes the same function, that call
-     (``library_ms``).  mandelbrot and spin_image agree exactly;
+     (``library_ms``).  mandelbrot and spin_image agree exactly, at the
+     shapes the paper path launches: mandelbrot on the 512 x 512 image
+     and on each of its 64 tiles as strided views of the grid, timed at
+     the image, the deepest and the lightest tile (beside the deepest
+     pixel's dependent-chain floor) and the 64 tiles in turn;
+     spin_image at every FAC chunk size of the PSIA run (2,500 down to 1
+     centers, each with its cloud split printed), at 2,048 centers, on a
+     cloud one point short, on one 12 bytes off 16-byte alignment (the
+     element loads) and on points placed on bin edges, each launched
+     twice (bit for bit), each chunk size timed, and the share
+     of pairs that the fast binning's guard sends to the correctly
+     rounded chain (its plain mirror over the whole run);
      flash_decode (olmo-1b's 8 x 16 rows of 128 at L = 1016, 1024, 100
      and 300, float32 and bfloat16, scattered and fully masked blocks,
      with the CTAs per row printed; timed at L = 1016 and 80),
@@ -38,7 +50,8 @@ Phases, each fatal when it fails:
      counts are set to 0 just before and read just after; every kernel
      must have launched.  The results must equal failure-free runs bit
      for bit, and a few tiles and spin images must equal the plain
-     version computed on the CPU;
+     version computed on the CPU.  One failure-free run of each app is
+     then traced: its kernel's device ms summed over the run;
   4. drive the serving path for olmo-1b and rwkv6-1.6b at full width in
      bfloat16 with seeded random weights: threaded rDLB (SS, P=4) over
      16 requests of prompt lengths 37, 64 and 1000, 16 new tokens each,
@@ -101,10 +114,16 @@ OPS_PER_PAIR = 24
 
 # The image, iteration cap, PSIA points and cloud are the paper's
 # (Table 1), read from the apps' own constants.  A Mandelbrot task is one
-# TILE x TILE tile; SPIN_CHUNK centers are compared and timed, about the
-# first FAC chunk at P=4.
+# TILE x TILE tile; the PSIA run (FAC over PSIA_WORKERS workers) launches
+# spin_image at each chunk size of fac_chunk_sizes().  SPIN_CHUNK centers
+# are the spin_image row of the {"kernels"} line, the shape earlier PRs
+# timed.
 TILE = 64
 SPIN_CHUNK = 2048
+PSIA_WORKERS = 4
+# The FP32 dependent chain of one Mandelbrot iteration: zr -> zr*zr ->
+# - zi*zi -> + cr, three operations of about 4 cycles each on Hopper.
+CHAIN_CYCLES = 12
 
 # Serving (phase 4): olmo-1b carries flash_decode, rwkv6-1.6b the two
 # wkv6 kernels.  Prompt lengths cycle over SERVE_PROMPTS.
@@ -211,78 +230,219 @@ def bound_ms(n_bytes: float, n_ops: float,
 
 
 # ------------------------------------------------------------ phase 2
-def compare_kernels(dev) -> dict:
-    """Each kernel against its plain version on ``dev``, at the main
-    path's shapes, and timed; returns the per-kernel report rows."""
-    from repro_torch.apps import mandelbrot, psia
-    from repro_torch.kernels import mandelbrot as km, spin_image as ks
+def fac_chunk_sizes(n: int, p: int) -> list:
+    """The chunk sizes FAC hands out over n tasks and p workers, in order
+    (the batching rule of ``core/dls.py``): the spin_image launches of
+    the PSIA run."""
+    from repro_torch.core.dls import make_technique
+    tech = make_technique("FAC", n, p)
+    sizes, left = [], n
+    while left > 0:
+        c = tech.next_chunk(0, left)
+        sizes.append(c)
+        left -= c
+    return sizes
 
-    rows = {}
-    side, max_iters = mandelbrot.SIDE, mandelbrot.MAX_ITERS
+
+def sm_clock_mhz() -> float:
+    """The card's maximum SM clock (``nvidia-smi``), for the chain floor."""
+    res = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    if res.returncode != 0:
+        fail(f"nvidia-smi failed: {res.stderr.strip()}")
+    return float(res.stdout.split()[0])
+
+
+def compare_mandelbrot(dev, *, every_tile: bool = False) -> dict:
+    """mandelbrot against its plain version, exactly: the whole image
+    (twice: the second launch must repeat the first bit for bit) and each
+    of its 64 tiles as strided views of the grid, as ``compute_tile``
+    launches them; then timed beside its bound: the image, the deepest
+    and the lightest tile alone (every tile with ``every_tile``), and the
+    64 tiles in turn, each tile printed with its dependent-chain floor."""
+    import torch
+    from repro_torch.apps import mandelbrot
+    from repro_torch.kernels import mandelbrot as km
+    side, iters = mandelbrot.SIDE, mandelbrot.MAX_ITERS
     cr, ci = mandelbrot.grid(side, device=dev)
-    got = km.mandelbrot(cr, ci, max_iters=max_iters)
-    want = km.mandelbrot_plain(cr, ci, max_iters)
+    got = km.mandelbrot(cr, ci, max_iters=iters)
+    want = km.mandelbrot_plain(cr, ci, iters)
     n_diff = int((got != want).sum())
     err = float((got - want).abs().max())
-    # and one tile, the shape each rDLB task gives the kernel
-    tcr = cr[:TILE, :TILE].contiguous()
-    tci = ci[:TILE, :TILE].contiguous()
-    n_diff += int((km.mandelbrot(tcr, tci, max_iters=max_iters)
-                   != km.mandelbrot_plain(tcr, tci, max_iters)).sum())
-    print(f"compare,mandelbrot,{side}x{side} and {TILE}x{TILE}"
-          f"/{max_iters},differing_pixels={n_diff},max_abs_err={err}")
-    if n_diff:
+    if not torch.equal(km.mandelbrot(cr, ci, max_iters=iters), got):
+        fail("mandelbrot: a second launch differs from the first")
+    per_row = side // TILE
+    tiles, tile_diff = [], 0
+    for t in range(per_row * per_row):
+        ty, tx = divmod(t, per_row)
+        sl = (slice(ty * TILE, (ty + 1) * TILE),
+              slice(tx * TILE, (tx + 1) * TILE))
+        a, b = cr[sl], ci[sl]
+        w = km.mandelbrot_plain(a, b, iters)
+        tile_diff += int((km.mandelbrot(a, b, max_iters=iters) != w).sum())
+        tiles.append((t, a, b, int(w.sum()), int(w.max())))
+    print(f"compare,mandelbrot,{side}x{side}/{iters} (twice) and "
+          f"{len(tiles)} tiles of {TILE}x{TILE} as strided views,"
+          f"differing_pixels={n_diff + tile_diff},max_abs_err={err}")
+    if n_diff or tile_diff:
         fail(f"mandelbrot kernel differs from its plain version in "
-             f"{n_diff} pixels")
-    iters = int(want.sum())
-    b, by = bound_ms(3 * side * side * 4, OPS_PER_ITER * iters)
-    rows["mandelbrot"] = dict(
-        name="mandelbrot", route="cuda",
-        source="src/repro_torch/csrc/mandelbrot.cu",
-        replaces="src/repro/kernels/mandelbrot.py:49",
-        shape=f"({side},{side}) max_iters={max_iters}",
-        iterations=iters, max_abs_err=err, bound_ms=b, bound_by=by,
-        library_ms=None)
-    launch = lambda: km.mandelbrot(cr, ci, max_iters=max_iters)  # noqa: E731
-    rows["mandelbrot"].update(
-        ms=graph_ms(launch, 200),
-        trace_ms=trace_ms(launch, "mandelbrot_kernel", 200),
-        call_ms=call_ms(launch, 200),
-        plain_ms=call_ms(lambda: km.mandelbrot_plain(cr, ci, max_iters),
-                         3, warmup=1))
+             f"{n_diff} + {tile_diff} pixels")
+    b_ms, by = bound_ms(3 * side * side * 4, OPS_PER_ITER * int(want.sum()))
+    row = dict(name="mandelbrot", route="cuda",
+               source="src/repro_torch/csrc/mandelbrot.cu",
+               replaces="src/repro/kernels/mandelbrot.py:49",
+               shape=f"({side},{side}) max_iters={iters}",
+               max_abs_err=err, bound_ms=b_ms, bound_by=by, library_ms=None)
+    launch = lambda: km.mandelbrot(cr, ci, max_iters=iters)  # noqa: E731
+    row.update(ms=graph_ms(launch, 200),
+               trace_ms=trace_ms(launch, "mandelbrot_kernel", 200),
+               call_ms=call_ms(launch, 200),
+               plain_ms=call_ms(lambda: km.mandelbrot_plain(cr, ci, iters),
+                                3, warmup=1))
+    print(f"mandelbrot,timed {side}x{side},ms={row['ms']},"
+          f"bound_ms={b_ms} ({by})")
+    clock = sm_clock_mhz()
+    deepest = max(tiles, key=lambda t: t[3])[0]
+    lightest = min(tiles, key=lambda t: t[3])[0]
+    shapes = []
+    for t, a, b, n_it, top in tiles:
+        if not (every_tile or t in (deepest, lightest)):
+            continue
+        t_ms, t_by = bound_ms(3 * TILE * TILE * 4, OPS_PER_ITER * n_it)
+        floor = top * CHAIN_CYCLES / (clock * 1e3)
+        ms = graph_ms(lambda a=a, b=b: km.mandelbrot(a, b, max_iters=iters),
+                      100)
+        shapes.append(dict(shape=f"tile {t} ({TILE}x{TILE})", ms=ms,
+                           bound_ms=t_ms, bound_by=t_by))
+        print(f"mandelbrot,timed tile {t},iterations={n_it},deepest={top},"
+              f"ms={ms},bound_ms={t_ms} ({t_by}),chain_floor_ms={floor} "
+              f"(at {clock:.0f} MHz)")
+    ms = graph_ms(lambda: [km.mandelbrot(a, b, max_iters=iters)
+                           for _, a, b, _, _ in tiles], 10)
+    t_ms, t_by = bound_ms(3 * side * side * 4, OPS_PER_ITER * int(want.sum()))
+    shapes.append(dict(shape=f"{len(tiles)} tiles in turn", ms=ms,
+                       bound_ms=t_ms, bound_by=t_by))
+    print(f"mandelbrot,timed {len(tiles)} tiles in turn,ms={ms},"
+          f"bound_ms={t_ms} ({t_by})")
+    row["shapes"] = shapes
+    return row
 
+
+def compare_spin_image(dev) -> dict:
+    """spin_image against its plain version, exactly: at every chunk size
+    FAC gives the PSIA run and at SPIN_CHUNK centers, each launched twice
+    (the same bits), on a cloud one point short (no split divides it),
+    on a cloud 12 bytes off 16-byte alignment (the kernel's element
+    loads) and on points placed on bin edges; then each chunk size timed
+    beside its bound."""
+    import torch
+    from repro_torch.apps import psia
+    from repro_torch.kernels import spin_image as ks
     data = psia.dataset(n=psia.PAPER_N, cloud_n=psia.CLOUD, device=dev)
     pts = data.points
-    ctr = data.centers[:SPIN_CHUNK].contiguous()
-    nrm = data.normals[:SPIN_CHUNK].contiguous()
     kw = dict(n_alpha=psia.N_ALPHA, n_beta=psia.N_BETA,
               alpha_max=psia.ALPHA_MAX, beta_max=psia.BETA_MAX)
-    got = ks.spin_image(pts, ctr, nrm, **kw)
-    want = ks.spin_image_plain(pts, ctr, nrm, **kw)
-    n_diff = int((got != want).sum())
-    err = float((got - want).abs().max())
-    print(f"compare,spin_image,{ctr.shape[0]}x{pts.shape[0]}x"
-          f"{psia.N_BETA}x{psia.N_ALPHA},differing_bins={n_diff},"
-          f"max_abs_err={err},binned={int(want.sum())}")
+    sizes = fac_chunk_sizes(psia.PAPER_N, PSIA_WORKERS)
+    err, n_diff, checked = 0.0, 0, []
+    # the same cloud one point into a buffer: 12 bytes off alignment
+    buf = torch.empty((pts.shape[0] + 1, 3), dtype=pts.dtype, device=dev)
+    buf[1:] = pts
+    unaligned = buf[1:]
+
+    def check(label, p, c, n):
+        nonlocal err, n_diff
+        got = ks.spin_image(p, c, n, **kw)
+        want = ks.spin_image_plain(p, c, n, **kw)
+        if not torch.equal(ks.spin_image(p, c, n, **kw), got):
+            fail(f"spin_image ({label}): a second launch differs from the "
+                 f"first")
+        n_diff += int((got != want).sum())
+        err = max(err, float((got - want).abs().max()))
+        checked.append(label)
+        return got, want
+
+    timed, est = [], 0.0
+    for n in sorted(set(sizes) | {SPIN_CHUNK}, reverse=True):
+        ctr = data.centers[:n].contiguous()
+        nrm = data.normals[:n].contiguous()
+        got, want = check(f"{n}x{pts.shape[0]}", pts, ctr, nrm)
+        if n in (1, 39, 157, 2500):
+            check(f"{n}x{pts.shape[0] - 1}", pts[:-1], ctr, nrm)
+        if n in (1, 39, 2500):
+            check(f"{n}x{pts.shape[0]} unaligned", unaligned, ctr, nrm)
+        n_bytes = (pts.numel() + ctr.numel() + nrm.numel()
+                   + got.numel()) * 4
+        b, by = bound_ms(n_bytes, OPS_PER_PAIR * n * pts.shape[0])
+        launch = lambda: ks.spin_image(pts, ctr, nrm, **kw)  # noqa: E731
+        ms = graph_ms(launch, 20 if n > 1000 else 100)
+        timed.append(dict(shape=f"centers={n} points={pts.shape[0]}",
+                          ms=ms, bound_ms=b, bound_by=by))
+        est += ms * sizes.count(n)
+        print(f"spin_image,timed centers={n},points={pts.shape[0]},"
+              f"split={ks.pt_split(n, pts.shape[0])},"
+              f"chunks_per_run={sizes.count(n)},ms={ms},"
+              f"bound_ms={b} ({by})")
+        if n == SPIN_CHUNK:
+            row = dict(name="spin_image", route="cuda",
+                       source="src/repro_torch/csrc/spin_image.cu",
+                       replaces="src/repro/kernels/spin_image.py:71",
+                       shape=f"centers={n} points={pts.shape[0]} "
+                             f"bins={psia.N_BETA}x{psia.N_ALPHA}",
+                       bound_ms=b, bound_by=by, library_ms=None)
+            row.update(ms=ms, trace_ms=trace_ms(launch, "spin_image_kernel",
+                                                50),
+                       call_ms=call_ms(launch, 50),
+                       plain_ms=call_ms(lambda: ks.spin_image_plain(
+                           pts, ctr, nrm, **kw), 3, warmup=1))
+    p, c, n = (x.to(dev) for x in ks.bin_edge_cloud(**kw))
+    for n_centers in (1, 8):
+        check(f"bin edges, {n_centers}x{p.shape[0]}", p,
+              c.expand(n_centers, 3).contiguous(),
+              n.expand(n_centers, 3).contiguous())
+    print(f"compare,spin_image,{len(checked)} cases ({'; '.join(checked)}),"
+          f"differing_bins={n_diff},max_abs_err={err}")
     if n_diff:
         fail(f"spin_image kernel differs from its plain version in "
              f"{n_diff} bins")
-    n_bytes = (pts.numel() + ctr.numel() + nrm.numel() + got.numel()) * 4
-    b, by = bound_ms(n_bytes, OPS_PER_PAIR * ctr.shape[0] * pts.shape[0])
-    rows["spin_image"] = dict(
-        name="spin_image", route="cuda",
-        source="src/repro_torch/csrc/spin_image.cu",
-        replaces="src/repro/kernels/spin_image.py:71",
-        shape=f"centers={ctr.shape[0]} points={pts.shape[0]} "
-              f"bins={psia.N_BETA}x{psia.N_ALPHA}",
-        max_abs_err=err, bound_ms=b, bound_by=by, library_ms=None)
-    launch = lambda: ks.spin_image(pts, ctr, nrm, **kw)  # noqa: E731
-    rows["spin_image"].update(
-        ms=graph_ms(launch, 50),
-        trace_ms=trace_ms(launch, "spin_image_kernel", 50),
-        call_ms=call_ms(launch, 50),
-        plain_ms=call_ms(lambda: ks.spin_image_plain(pts, ctr, nrm, **kw),
-                         3, warmup=1))
+    print(f"spin_image,the run's {len(sizes)} FAC chunks timed alone: "
+          f"sum ms={est}")
+    row.update(max_abs_err=err, shapes=timed)
+    return row
+
+
+def guard_share(dev) -> None:
+    """Share of the PSIA run's pairs (every center over the cloud) that
+    the fast binning's guard sends to the correctly rounded chain, from
+    its plain mirror with PyTorch's rsqrt on the card (printed; not a
+    measurement of the kernel); the mirror's bins must equal the plain
+    version's."""
+    import torch
+    from repro_torch.apps import psia
+    from repro_torch.kernels import spin_image as ks
+    data = psia.dataset(n=psia.PAPER_N, cloud_n=psia.CLOUD, device=dev)
+    kw = dict(n_alpha=psia.N_ALPHA, n_beta=psia.N_BETA,
+              alpha_max=psia.ALPHA_MAX, beta_max=psia.BETA_MAX)
+    slow = 0
+    for c0 in range(0, psia.PAPER_N, 2500):
+        ctr, nrm = (x[c0:c0 + 2500] for x in (data.centers, data.normals))
+        hist, n = ks.spin_image_guard_mirror(data.points, ctr, nrm, **kw)
+        if not torch.equal(hist, ks.spin_image_plain(data.points, ctr, nrm,
+                                                     **kw)):
+            fail("spin_image's guard mirror differs from the plain version")
+        slow += n
+    pairs = psia.PAPER_N * psia.CLOUD
+    print(f"guard,spin_image,pairs={pairs},slow_path_pairs={slow},"
+          f"share={slow / pairs}")
+
+
+def compare_kernels(dev) -> dict:
+    """The paper path's two kernels against their plain versions on
+    ``dev``, at the shapes the rDLB runs launch, and timed; returns the
+    per-kernel report rows."""
+    rows = {"mandelbrot": compare_mandelbrot(dev),
+            "spin_image": compare_spin_image(dev)}
+    guard_share(dev)
     return rows
 
 
@@ -368,6 +528,46 @@ def drive_main_path(dev) -> dict:
     return dict(img=img, mst=mst, t_m=t1 - t0, spins=spins, pst=pst,
                 t_p=t2 - t1, launches=dispatch.launches(),
                 status=dispatch.status())
+
+
+def profile_app_run(dev, app: str) -> dict:
+    """One failure-free rDLB run of ``app`` ("mandelbrot" or "psia") as
+    phase 3 drives it, after a warm one: its wall seconds and the app
+    kernel's launches unprofiled, then traced with torch.profiler: the
+    kernel's device ms summed over the run (kernel ms per run) and its
+    calls, all device time and calls, and the kernels that take most."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import dispatch
+    run = run_mandelbrot if app == "mandelbrot" else run_psia
+    site = "mandelbrot" if app == "mandelbrot" else "spin_image"
+    run(dev, failing=None)
+    torch.cuda.synchronize()
+    dispatch.reset_launches()
+    t0 = time.perf_counter()
+    run(dev, failing=None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dispatch.launches(site)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(dev, failing=None)
+        torch.cuda.synchronize()
+    kernels = sorted(((e.key[:70], e.count, device_us(e) / 1e3)
+                      for e in device_events(prof)), key=lambda k: -k[2])
+    mine = [k for k in kernels if site in k[0]]
+    out = dict(app=app, wall_s=wall, launches=launches,
+               kernel_ms_per_run=sum(k[2] for k in mine),
+               kernel_calls=sum(k[1] for k in mine),
+               device_ms_per_run=sum(k[2] for k in kernels),
+               device_calls=sum(k[1] for k in kernels),
+               top=[(n, c, round(ms, 4)) for n, c, ms in kernels[:6]])
+    print(f"run,{app},failure-free,wall_s={wall:.4f},launches={launches},"
+          f"kernel_ms_per_run={out['kernel_ms_per_run']},kernel_calls="
+          f"{out['kernel_calls']},device_ms_per_run="
+          f"{out['device_ms_per_run']},device_calls={out['device_calls']},"
+          f"top (name, calls, ms)={out['top']}")
+    return out
 
 
 def check_main_path(dev, run: dict) -> None:
@@ -638,8 +838,8 @@ def compare_wkv6_kernels(dev) -> dict:
             *ins[:5], state, out_state=state)
         ms = graph_ms(launch, 200)
         b, by = wkv6_decode_bound(BH, dk, dv)
-        timed.append(dict(kernel="wkv6_decode", BH=BH, ms=ms, bound_ms=b,
-                          bound_by=by))
+        timed.append(("wkv6_decode", dict(shape=f"BH={BH}", ms=ms,
+                                          bound_ms=b, bound_by=by)))
         print(f"wkv6_decode,timed BH={BH},n_col={n_col},ms={ms},"
               f"bound_ms={b} ({by})")
         if BH == WKV_ROW["wkv6_decode"]:
@@ -668,8 +868,8 @@ def compare_wkv6_kernels(dev) -> dict:
         launch = lambda: kw.wkv6_batched(*ins)  # noqa: E731
         ms = graph_ms(launch, 100 if T < 1000 else 20)
         b, by = wkv6_batched_bound(BH, T, dk, dv, kw.CHUNK)
-        timed.append(dict(kernel="wkv6_batched", BH=BH, T=T, ms=ms,
-                          bound_ms=b, bound_by=by))
+        timed.append(("wkv6_batched", dict(shape=f"BH={BH} T={T}", ms=ms,
+                                           bound_ms=b, bound_by=by)))
         print(f"wkv6_batched,timed BH={BH},T={T},n_col={n_col},ms={ms},"
               f"bound_ms={b} ({by})")
         if (BH, T) == WKV_ROW["wkv6_batched"]:
@@ -682,7 +882,7 @@ def compare_wkv6_kernels(dev) -> dict:
                   lambda: kw.wkv6_batched_plain(*ins), "wkv6_batched", 100)
     rows["wkv6_batched"]["max_abs_err"] = err
     for name in rows:
-        rows[name]["shapes"] = [t for t in timed if t["kernel"] == name]
+        rows[name]["shapes"] = [t for k, t in timed if k == name]
     return rows
 
 
@@ -1363,7 +1563,8 @@ def main() -> int:
             print(f"ptxas: {line.strip()}")
     # the redesigned kernels' registers, shared memory and spills
     for src, name, regs, spills in ptxas_entries(_build.build_log):
-        if "wgmma" in name or src in ("flash_decode.cu", "wkv6.cu"):
+        if "wgmma" in name or src in ("flash_decode.cu", "wkv6.cu",
+                                      "mandelbrot.cu", "spin_image.cu"):
             print(f"ptxas,{src},{name},{regs},{spills}")
     check_wkv6_smem(_build)
     sass = sass_counts(_build, "flash_attention_wgmma")
@@ -1400,6 +1601,9 @@ def main() -> int:
         rows[site]["launches"] = launches[site]
     check_main_path(dev, run)
     print("rdlb: fail-stop results equal failure-free runs bit for bit")
+    for app, site in (("mandelbrot", "mandelbrot"), ("psia", "spin_image")):
+        rows[site]["kernel_ms_per_run"] = profile_app_run(
+            dev, app)["kernel_ms_per_run"]
 
     # phase 4: serving, each model's run with its own launch counts
     for arch in SERVE_ARCHS:

@@ -58,7 +58,8 @@ def main() -> int:
           f": wall_s={walls}")
     print(json.dumps({"label": args.label, "src": args.src,
                       "gpu": torch.cuda.get_device_name(0),
-                      "shapes": [t for r in rows.values()
+                      "shapes": [dict(kernel=name, **t)
+                                 for name, r in rows.items()
                                  for t in r["shapes"]],
                       "prefill_wall_s": walls}))
     return 0

@@ -106,13 +106,14 @@ def task_times(n_tasks: int = PAPER_N, *, side: int = SIDE,
 def compute_tile(tile_id: int, *, side: int = SIDE, tile: int = 64,
                  max_iters: int = MAX_ITERS, device=None) -> np.ndarray:
     """Compute one (tile x tile) tile — a runtime task. Deterministic.
-    Slices the cached device grid; returns the counts on the host."""
+    Launches the kernel on a view of the cached device grid (no copy);
+    returns the counts on the host."""
     per_row = side // tile
     ty, tx = divmod(tile_id, per_row)
     cr, ci = grid(side, device=device)
     sl = (slice(ty * tile, (ty + 1) * tile),
           slice(tx * tile, (tx + 1) * tile))
-    return _counts(cr[sl].contiguous(), ci[sl].contiguous(), max_iters)
+    return _counts(cr[sl], ci[sl], max_iters)
 
 
 def n_tiles(side: int = SIDE, tile: int = 64) -> int:

@@ -248,6 +248,22 @@ __device__ __forceinline__ float ld_cluster_f32(const float* local,
   return v;
 }
 
+// The int at the same shared-memory offset as `local` in the CTA of
+// cluster rank `rank` (distributed shared memory).
+__device__ __forceinline__ int ld_cluster_s32(const int* local,
+                                              uint32_t rank) {
+  uint32_t remote;
+  int v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_addr(local)), "r"(rank));
+  asm volatile("ld.shared::cluster.s32 %0, [%1];\n"
+               : "=r"(v)
+               : "r"(remote)
+               : "memory");
+  return v;
+}
+
 // Stores v at the shared-memory offset of `local` in the CTA of cluster
 // rank `rank` (distributed shared memory); a cluster barrier makes it
 // visible there.

@@ -41,7 +41,8 @@ def cuda():
 
 
 @pytest.mark.parametrize("m,n,max_iters", [(128, 128, 64), (96, 80, 64),
-                                           (17, 300, 256)])
+                                           (17, 300, 256), (64, 40, 13),
+                                           (64, 40, 1), (8, 8, 0)])
 def test_mandelbrot_kernel_equals_plain(cuda, m, n, max_iters):
     rng = np.random.default_rng(m * n)
     cr = torch.from_numpy(rng.uniform(-2.0, 0.6, (m, n)).astype(np.float32))
@@ -66,6 +67,65 @@ def test_spin_image_kernel_equals_plain(cuda, bo, n_alpha, n_beta):
     want = ks.spin_image_plain(data.points, data.centers, data.normals,
                                **kw)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("tile_id", [0, 5, 29, 63])
+def test_mandelbrot_kernel_on_strided_tiles(cuda, tile_id):
+    """The rDLB task's shape: a 64 x 64 view of the 512 x 512 grid (29 is
+    the deepest tile), launched in place, once per call, the same bits on
+    a second launch."""
+    cr, ci = mandelbrot.grid(512, device=cuda)
+    ty, tx = divmod(tile_id, 8)
+    sl = (slice(ty * 64, (ty + 1) * 64), slice(tx * 64, (tx + 1) * 64))
+    a, b = cr[sl], ci[sl]
+    assert not a.is_contiguous()
+    before = dispatch.launches("mandelbrot")
+    got = km.mandelbrot(a, b, max_iters=256)
+    torch.cuda.synchronize()
+    assert dispatch.launches("mandelbrot") == before + 1
+    assert got.is_contiguous() and got.shape == (64, 64)
+    assert torch.equal(got, km.mandelbrot_plain(a, b, 256))
+    assert torch.equal(km.mandelbrot(a, b, max_iters=256), got)
+
+
+@pytest.mark.parametrize("cloud", ["paper", "one short", "unaligned"])
+@pytest.mark.parametrize("bo", [1, 2, 39, 313, 2500])
+def test_spin_image_kernel_at_the_runs_chunks(cuda, bo, cloud):
+    """FAC chunk sizes of the PSIA run (8, 8, 8, 1 and 1 CTAs a center)
+    over the paper's cloud, one a point short, which no split divides,
+    and the same cloud one point into a buffer, 12 bytes off 16-byte
+    alignment (the kernel's element loads instead of float4 ones): bin for
+    bin, once counted per call, the same bits twice."""
+    data = psia.dataset(n=psia.PAPER_N, cloud_n=psia.CLOUD, device=cuda)
+    pts = data.points[:-1] if cloud == "one short" else data.points
+    if cloud == "unaligned":
+        buf = torch.empty((psia.CLOUD + 1, 3), device=cuda)
+        buf[1:] = data.points
+        pts = buf[1:]
+        assert pts.is_contiguous() and pts.data_ptr() % 16 != 0
+    ctr, nrm = data.centers[:bo].contiguous(), data.normals[:bo].contiguous()
+    kw = dict(n_alpha=psia.N_ALPHA, n_beta=psia.N_BETA,
+              alpha_max=psia.ALPHA_MAX, beta_max=psia.BETA_MAX)
+    before = dispatch.launches("spin_image")
+    got = ks.spin_image(pts, ctr, nrm, **kw)
+    torch.cuda.synchronize()
+    assert dispatch.launches("spin_image") == before + 1
+    assert dispatch.status("spin_image")["path"] == "cuda"
+    assert torch.equal(got, ks.spin_image_plain(pts, ctr, nrm, **kw))
+    assert torch.equal(ks.spin_image(pts, ctr, nrm, **kw), got)
+
+
+@pytest.mark.parametrize("bo", [1, 300])
+def test_spin_image_kernel_on_bin_edges(cuda, bo):
+    """Points exactly on bin edges and range ends, and one ulp to either
+    side: the fast binning's guard sends them to the exact chain."""
+    kw = dict(n_alpha=psia.N_ALPHA, n_beta=psia.N_BETA,
+              alpha_max=psia.ALPHA_MAX, beta_max=psia.BETA_MAX)
+    pts, c, n = (x.to(cuda) for x in ks.bin_edge_cloud(**kw))
+    c, n = c.expand(bo, 3).contiguous(), n.expand(bo, 3).contiguous()
+    got = ks.spin_image(pts, c, n, **kw)
+    assert torch.equal(got, ks.spin_image_plain(pts, c, n, **kw))
+    assert got.sum() > 0
 
 
 def test_cuda_tile_equals_cpu_tile(cuda):
