@@ -35,7 +35,9 @@ Phases, each fatal when it fails:
      rounded chain (its plain mirror over the whole run);
      flash_decode (olmo-1b's 8 x 16 rows of 128 at L = 1016, 1024, 100
      and 300, float32 and bfloat16, scattered and fully masked blocks,
-     with the CTAs per row printed; timed at L = 1016 and 80),
+     with the CTAs per row printed; timed at L = 1016 and 80; and at the
+     serving path's own B = 1, 16 rows at L = 53, 80 and 1016, each held,
+     timed beside its bound and SDPA, the row's ``shapes``),
      wkv6_decode and wkv6_batched within float32 rounding at
      rwkv6-1.6b's heads of 64, BH = 32 (one request, the serving path's
      shape) and 256 (B = 8): decode at both, batched at BH = 32 with
@@ -82,8 +84,27 @@ Phases, each fatal when it fails:
      every launch of a step in its wgmma variant; a float32 copy cut to 2
      layers gives loss and gradients through the kernel within a stated
      tolerance of the plain path's, both on the card;
-  6. print one JSON line with each kernel's launches, error, times and
-     bound, then the result line.
+  6. the batched simulator (``core/devicesim``, no kernel: batched
+     float64 PyTorch ops) at the reference's benchmark sizes:
+     ``benchmarks/fig_scale.py``'s device sweep point (P = 1024, N =
+     131,072 unit tasks of 0.01 s, h = 1e-6, B = 1024 elements cycling
+     SS / STATIC / mFSC / FSC) with every element valid and each
+     technique's t_par within rtol 1e-12, atol 1e-9 of the scalar engine
+     (cold and warm seconds, and the scalar engine's seconds a
+     simulation); one ``benchmarks/fig4_resilience.py`` Monte-Carlo cell
+     per k in {1, 16, 31} (P = 32, N = 256, h = 1e-4, SS / mFSC / FSC,
+     10,000 paired fail-stop draws each, 30,000 elements in one call):
+     invalid elements re-run on the scalar engine and counted, 32 draws
+     a technique equal to the scalar engine (t_par within 1e-9, counters
+     exactly), the whole batch equal to the same call on the CPU, seconds
+     a cell; and an adaptive virtual run (mFSC, P = 64, N = 8,192,
+     DEVICE_PORTFOLIO, a decision every 8 reports) with device_sweep on
+     and off: the same decisions, predictions within 1e-7, and at least
+     one forecast batch on the card (counts set to 0 just before, read
+     just after);
+  7. print one JSON line with the simulator's numbers (``{"devicesim":
+     ...}``), one with each kernel's launches, error, times and bound,
+     then the result line.
 
 Exits non-zero, printing no result, when no GPU is present or when the
 script is run outside a checkout of the repository.
@@ -733,6 +754,34 @@ def compare_decode_kernels(dev) -> dict:
     short = graph_ms(lambda: kf.flash_decode_gqa(qc, ks_, vs_, ok_), 100)
     print(f"flash_decode,timed L={Ls},cluster={kf.decode_splits(Ls)} CTAs "
           f"per row,ms={short}")
+    # the serving path's own shape: one request a group (B = 1), its H
+    # query rows against the cache each served prompt reaches at its last
+    # step (L = 53, 80, 1016), held, timed and beside SDPA
+    shapes = []
+    for L1 in (p + SERVE_NEW for p in SERVE_PROMPTS):
+        q1 = torch.randn((1, H, D), generator=gen).to(dev, torch.bfloat16)
+        k1, v1 = (torch.randn((1, L1, H, D), generator=gen).to(
+            dev, torch.bfloat16) for _ in range(2))
+        ok1 = torch.ones(L1, dtype=torch.bool, device=dev)
+        err = max(err, check(
+            "flash_decode_gqa", f"cache=(1;{L1};{H};{D})", torch.bfloat16,
+            kf.flash_decode_gqa(q1, k1, v1, ok1),
+            kf.flash_decode_gqa_plain(q1, k1, v1, ok1)))
+        b1, by1 = bound_ms(2 * (q1.numel() + k1.numel() + v1.numel()
+                                + H * D) + L1,
+                           flash_decode_ops(H, L1, D, D))
+        ms1 = graph_ms(lambda: kf.flash_decode_gqa(q1, k1, v1, ok1), 100)
+        qs1 = q1.reshape(H, 1, D)
+        ks1, vs1 = (x.transpose(1, 2).reshape(H, L1, D) for x in (k1, v1))
+        lib1 = call_ms(lambda: sdpa(qs1, ks1, vs1, attn_mask=ok1[None, :]),
+                       100)
+        shapes.append(dict(shape=f"cache (1,{L1},{H},{D}) bf16, {H} query "
+                                 f"rows, all slots valid", ms=ms1,
+                           bound_ms=b1, bound_by=by1, library_ms=lib1))
+        print(f"flash_decode,timed B=1 L={L1},cluster={kf.decode_splits(L1)}"
+              f" CTAs per row,ms={ms1},bound_ms={b1} ({by1}),"
+              f"sdpa_ms={lib1}")
+    rows["flash_decode"].update(max_abs_err=err, shapes=shapes)
 
     rows.update(compare_wkv6_kernels(dev))
     return rows
@@ -1470,6 +1519,272 @@ def check_train_float32(dev) -> None:
 
 
 
+# ------------------------------------------------------------ phase 6
+# The batched simulator (core/devicesim) at the reference's benchmark
+# sizes: benchmarks/fig_scale.py's device_sweep_point (B elements cycling
+# the four fixed-chunk techniques over P workers and N unit tasks of t
+# seconds) and one cell of benchmarks/fig4_resilience.py's monte_carlo
+# per k (paired fail-stop draws of k victims, DRAWS a technique, all in
+# one call).  Then an adaptive virtual run (ADAPTIVE_* below) whose
+# portfolio forecasts batch on the card, against the same run forecast
+# on the scalar engine.
+SCALE_TECHS = ("SS", "STATIC", "mFSC", "FSC")
+SCALE = dict(P=1024, N=1 << 17, B=1024, t=0.01, h=1e-6)
+MC_TECHS = ("SS", "mFSC", "FSC")
+MC = dict(P=32, N=256, t=0.01, h=1e-4, draws=10_000, cells=(1, 16, 31),
+          seed=0)
+MC_SAMPLED = 32                  # draws a technique held to the engine
+ADAPTIVE_P, ADAPTIVE_N, ADAPTIVE_EVERY = 64, 8192, 8
+SIM_ATOL = 1e-9                  # t_par, absolute (float64 both sides)
+
+
+def sim_spec(tech: str, P: int, h: float):
+    from repro_torch import api
+    from repro_torch.core import faults
+    return api.RunSpec(
+        scheduling=api.SchedulingSpec(technique=tech),
+        cluster=api.ClusterSpec.from_scenario(faults.baseline(P)),
+        execution=api.ExecutionSpec(h=h))
+
+
+def draw_failures(rng, P: int, k: int, t_est: float, draws: int):
+    """``draws`` i.i.d. fail-stop draws as benchmarks/fig4_resilience.py
+    makes them: k distinct victims among workers 1..P-1, instants uniform
+    over [0.05, 0.95] t_est; [draws, P], inf = survives."""
+    import numpy as np
+    keys = rng.random((draws, P - 1))
+    victims = np.argpartition(keys, min(k, P - 2), axis=1)[:, :k] + 1
+    times = rng.uniform(0.05 * t_est, 0.95 * t_est, size=(draws, k))
+    fail = np.full((draws, P), np.inf)
+    np.put_along_axis(fail, victims, times, axis=1)
+    return fail
+
+
+def same_t_par(a, b) -> bool:
+    import numpy as np
+    a, b = np.asarray(a, float), np.asarray(b, float)
+    return bool(np.array_equal(np.isinf(a), np.isinf(b))
+                and np.all(np.abs(a[np.isfinite(b)] - b[np.isfinite(b)])
+                           <= SIM_ATOL))
+
+
+def check_same_batch(label: str, got, want) -> None:
+    """Every field of two DeviceBatchResults: floats within SIM_ATOL with
+    infinities in the same places, flags and integers identical."""
+    import dataclasses
+
+    import numpy as np
+    for f in dataclasses.fields(got):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        same = (same_t_par(a, b) if a.dtype.kind == "f"
+                else np.array_equal(a, b))
+        if not same:
+            fail(f"{label}: field {f.name} of the card's batch differs from "
+                 f"the CPU's")
+
+
+def profile_sim(label: str, fn, wall: float) -> dict:
+    """One more call of ``fn`` under torch.profiler: the kernels it
+    launched, the device's busy seconds beside ``wall`` (the same call's
+    unprofiled seconds), and the host ops that take most time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+    kernels = device_events(prof)
+    busy = sum(device_us(e) for e in kernels) / 1e6
+    host = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total,
+                  reverse=True)[:5]
+    out = dict(kernels=sum(e.count for e in kernels), device_busy_s=busy,
+               busy_share=busy / wall,
+               top_host_ops=[(e.key, e.count,
+                              round(e.self_cpu_time_total / 1e3, 3))
+                             for e in host])
+    print(f"devicesim,{label},profiled,{json.dumps(out)}")
+    return out
+
+
+def devicesim_scale(dev) -> dict:
+    """fig_scale's device sweep point on the card: every element valid,
+    each technique's t_par within rtol 1e-12, atol 1e-9 of the scalar
+    engine and its assignment and duplicate counts equal."""
+    import numpy as np
+    from repro_torch import api
+    from repro_torch.core import devicesim
+    P, N, B, t, h = (SCALE[k] for k in ("P", "N", "B", "t", "h"))
+    tt = np.full(N, t)
+    lows, scalar, loop_s = [], [], []
+    for tech in SCALE_TECHS:
+        spec = sim_spec(tech, P, h)
+        lo, why = devicesim.lower_run(spec, tt)
+        if lo is None:
+            fail(f"devicesim: {tech} at P={P} does not lower: {why}")
+        lows.append(lo)
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            r = api.simulate(spec, tt)
+            best = min(best, time.perf_counter() - t0)
+        loop_s.append(best)
+        scalar.append(r)
+    tech_of = np.arange(B, dtype=np.int32) % len(SCALE_TECHS)
+    t0 = time.perf_counter()
+    devicesim.simulate_many(lows, tech_of=tech_of, device=dev)
+    cold = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = devicesim.simulate_many(lows, tech_of=tech_of, device=dev)
+    warm = time.perf_counter() - t0
+    prof = profile_sim("fig_scale", lambda: devicesim.simulate_many(
+        lows, tech_of=tech_of, device=dev), warm)
+    if not res.valid.all():
+        fail(f"devicesim: {int((~res.valid).sum())} of {B} fig_scale "
+             f"elements came back invalid in their home regime")
+    for u, (tech, r) in enumerate(zip(SCALE_TECHS, scalar)):
+        sel = tech_of == u
+        if not np.allclose(res.t_par[sel], r.t_par, rtol=1e-12,
+                           atol=SIM_ATOL):
+            fail(f"devicesim: {tech} t_par {res.t_par[sel][0]} against "
+                 f"the scalar engine's {r.t_par}")
+        if not ((res.n_assignments[sel] == r.n_assignments).all()
+                and (res.n_duplicates[sel] == r.n_duplicates).all()):
+            fail(f"devicesim: {tech} counters differ from the scalar "
+                 f"engine's")
+        print(f"devicesim,fig_scale,{tech},chunk={lows[u].chunk},"
+              f"chunks={lows[u].n_chunks},t_par={r.t_par},"
+              f"assignments={r.n_assignments},"
+              f"duplicates={r.n_duplicates},scalar_s={loop_s[u]}")
+    per_sim = sum(loop_s) / len(loop_s)
+    out = dict(P=P, N=N, B=B, h=h, cold_s=cold, warm_s=warm,
+               loop_per_sim_s=per_sim, loop_est_s=per_sim * B,
+               kernels=prof["kernels"], busy_share=prof["busy_share"])
+    print(f"devicesim,fig_scale,{json.dumps(out)}")
+    return out
+
+
+def devicesim_monte_carlo(dev) -> list:
+    """fig4_resilience's Monte-Carlo cells on the card: invalid elements
+    re-run on the scalar engine (counted), MC_SAMPLED draws a technique
+    equal to the scalar engine, the whole batch equal to the CPU's."""
+    import numpy as np
+    from repro_torch import api
+    from repro_torch.core import devicesim, faults
+    P, N, t, h, draws = (MC[k] for k in ("P", "N", "t", "h", "draws"))
+    times = np.full(N, t)
+    specs = [sim_spec(tech, P, h) for tech in MC_TECHS]
+    lows = [devicesim.lower_run(s, times)[0] for s in specs]
+    base = devicesim.simulate_many(lows, device=dev)
+    if not base.valid.all():
+        fail("devicesim: a failure-free Monte-Carlo base run is invalid")
+    t_est = float(base.t_par.max())
+    nt = len(MC_TECHS)
+    tech_of = np.repeat(np.arange(nt, dtype=np.int32), draws)
+    cells = []
+    for k in MC["cells"]:
+        fail_t = draw_failures(np.random.default_rng([MC["seed"], k]), P, k,
+                               t_est, draws)
+        kw = dict(tech_of=tech_of, fail_times=np.tile(fail_t, (nt, 1)))
+        t0 = time.perf_counter()
+        res = devicesim.simulate_many(lows, device=dev, **kw)
+        sec = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = devicesim.simulate_many(lows, device="cpu", **kw)
+        cpu_sec = time.perf_counter() - t0
+        check_same_batch(f"devicesim MC k={k}", res, cpu)
+
+        def scalar(b):
+            t_ix, d = divmod(int(b), draws)
+            prof = [faults.PEProfile(
+                fail_time=None if np.isinf(f) else float(f))
+                for f in fail_t[d]]
+            return api.simulate(specs[t_ix].replace(
+                cluster=api.ClusterSpec.from_scenario(
+                    faults.Scenario(f"mc_{k}_{d}", prof))), times)
+
+        t_fail = np.where(res.hung, np.inf, res.t_par)
+        bad = np.flatnonzero(~res.valid)
+        for b in bad:                        # exact: the scalar engine
+            t_fail[b] = scalar(b).t_par
+        pick = np.random.default_rng([MC["seed"], k, 1])
+        for u, tech in enumerate(MC_TECHS):
+            ok = np.flatnonzero(res.valid & (tech_of == u))
+            for b in pick.choice(ok, size=min(MC_SAMPLED, len(ok)),
+                                 replace=False):
+                r = scalar(b)
+                if not (same_t_par(res.t_par[b], r.t_par)
+                        and res.n_duplicates[b] == r.n_duplicates
+                        and res.n_assignments[b] == r.n_assignments
+                        and res.wasted_tasks[b] == r.wasted_tasks):
+                    fail(f"devicesim MC k={k} {tech} draw {b % draws}: "
+                         f"t_par {res.t_par[b]} against the scalar "
+                         f"engine's {r.t_par}, or its counters differ")
+        prof = profile_sim(f"monte_carlo k={k}", lambda: devicesim
+                           .simulate_many(lows, device=dev, **kw), sec)
+        cell = dict(k=k, elements=len(tech_of), seconds=sec,
+                    cpu_seconds=cpu_sec, kernels=prof["kernels"],
+                    busy_share=prof["busy_share"], invalid=len(bad),
+                    hung=int(np.isinf(t_fail).sum()),
+                    mean_t_par={tech: float(t_fail[tech_of == u].mean())
+                                for u, tech in enumerate(MC_TECHS)})
+        print(f"devicesim,monte_carlo,{json.dumps(cell)}")
+        cells.append(cell)
+    return cells
+
+
+def devicesim_adaptive() -> dict:
+    """An adaptive virtual run (mFSC, DEVICE_PORTFOLIO) with device_sweep
+    on (forecasts batched on the default device, the card) and off: the
+    same decisions, predictions within 1e-7, and at least one batch on
+    the card (counts set to 0 just before the run, read just after)."""
+    import numpy as np
+    from repro_torch import api
+    from repro_torch.core import devicesim
+    tt = np.ones(ADAPTIVE_N)
+
+    def run(device_sweep: bool):
+        spec = sim_spec("mFSC", ADAPTIVE_P, 1e-4).replace(
+            adaptive=api.AdaptiveSpec(
+                enabled=True, device_sweep=device_sweep,
+                decision_every_chunks=ADAPTIVE_EVERY,
+                portfolio=api.DEVICE_PORTFOLIO))
+        t0 = time.perf_counter()
+        r = api.simulate(spec, tt)
+        return r, time.perf_counter() - t0
+
+    devicesim.reset_batch_calls()
+    on, on_s = run(True)
+    calls = devicesim.batch_calls()
+    off, off_s = run(False)
+    da, db = on.adaptive_decisions, off.adaptive_decisions
+    if len(da) != len(db) or len(da) < 2:
+        fail(f"adaptive: {len(da)} decisions with device_sweep, {len(db)} "
+             f"without (need the same, at least 2)")
+    for a, b in zip(da, db):
+        if (a.chosen, a.swapped, a.n_remaining) != \
+                (b.chosen, b.swapped, b.n_remaining) or \
+                a.predictions.keys() != b.predictions.keys() or \
+                any(abs(a.predictions[c] - b.predictions[c]) > 1e-7
+                    for c in a.predictions):
+            fail(f"adaptive: decision at t={a.t} differs: {a.chosen} "
+                 f"{a.predictions} against {b.chosen} {b.predictions}")
+    if not same_t_par(on.t_par, off.t_par):
+        fail(f"adaptive: t_par {on.t_par} against {off.t_par}")
+    if calls.get("cuda", 0) < 1 or calls.get("cpu", 0):
+        fail(f"adaptive: batched forecasts by device {calls}; need at "
+             f"least one on the card and none on the CPU")
+    out = dict(P=ADAPTIVE_P, N=ADAPTIVE_N, decisions=len(da),
+               chosen=[d.chosen for d in da], card_batches=calls["cuda"],
+               device_sweep_s=on_s, scalar_sweep_s=off_s, t_par=on.t_par)
+    print(f"devicesim,adaptive,{json.dumps(out)}")
+    return out
+
+
+def drive_devicesim(dev) -> dict:
+    """Phase 6: the batched simulator and the adaptive policy it feeds."""
+    return dict(fig_scale=devicesim_scale(dev),
+                monte_carlo=devicesim_monte_carlo(dev),
+                adaptive=devicesim_adaptive())
+
+
 def ptxas_entries(log: str) -> list:
     """(source, mangled kernel name, its "Used ..." line, its spill
     line) for each kernel entry in nvcc's ``-Xptxas -v`` report."""
@@ -1614,7 +1929,14 @@ def main() -> int:
     rows["flash_attention"]["launches"] = drive_training(dev)
     check_train_float32(dev)
 
-    # phase 6: report
+    # phase 6: the batched simulator and adaptive re-planning
+    t0 = time.perf_counter()
+    sim = drive_devicesim(dev)
+    sim["seconds"] = time.perf_counter() - t0
+    sim["gpu"] = smi.stdout.strip()
+
+    # phase 7: report
+    print(json.dumps({"devicesim": sim}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

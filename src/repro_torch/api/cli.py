@@ -36,12 +36,12 @@ Usage::
     python -m repro_torch show --spec runs/fig4_fail1.json
     python -m repro_torch trace summarize out.json
     python -m repro_torch trace diff a.json b.json
+    python -m repro_torch trace calibrate out.json --spec run.json \
+        -o calibrated.json                # fit measured speeds/h back
 
 ``--device`` (default ``cuda``) is where the Mandelbrot workload's
-escape counts are computed; the simulation itself runs on the host.
-``trace calibrate`` and ``--emit-json`` of a traced run need
-``repro.obs``, which is not ported yet (ROADMAP.md queue A, item A9):
-they raise ``NotImplementedError``.
+escape counts are computed, and where an adaptive spec's
+``device_sweep`` forecasts run; the simulation itself runs on the host.
 
 ``--trace`` forces the flight recorder on (``execution.trace``) and
 exports each run as Chrome-trace-event JSON — open it at
@@ -145,7 +145,7 @@ def cmd_run(args) -> int:
     rows = []
     many = len(entries) > 1
     for name, spec in entries:
-        r = facade.simulate(spec, tt)
+        r = facade.simulate(spec, tt, sim_device=args.device)
         rows.append((name, r))
         print(f"run,{name},{spec.scheduling.technique},"
               f"{spec.cluster.name or spec.name or 'cluster'},"
@@ -160,10 +160,10 @@ def cmd_run(args) -> int:
             out = _suffixed(args.emit_json, name, many)
             rec = r.to_dict()
             if r.trace is not None:
-                raise NotImplementedError(
-                    "--emit-json of a traced run needs repro.obs."
-                    "run_telemetry, not ported to repro_torch yet: "
-                    "ROADMAP.md queue A, item A9")
+                # trace-derived telemetry rides inside the record, so a
+                # record consumer needs no separate trace file
+                from repro_torch.obs import run_telemetry
+                rec["telemetry"] = run_telemetry(r.trace)
             with open(out, "w") as f:
                 json.dump(rec, f)
                 f.write("\n")
@@ -229,11 +229,38 @@ def cmd_trace(args) -> int:
 
 
 def _trace_calibrate(args, trc) -> int:
-    """Fitting a calibrated RunSpec from a trace needs
-    ``repro.obs.calibrate_trace``, not ported yet."""
-    raise NotImplementedError(
-        "trace calibrate needs repro.obs.calibrate_trace, not ported to "
-        "repro_torch yet: ROADMAP.md queue A, item A9")
+    """Fit a calibrated RunSpec from an observed trace.
+
+    ``--spec`` takes either a bare RunSpec JSON or a run file (the
+    declared spec under its "spec" key; the workload — needed for
+    per-worker speed fits — under "workload").  ``--workload`` overrides
+    with a standalone workload JSON.  ``-o`` saves the calibrated spec.
+    """
+    from repro_torch.obs import calibrate_trace
+    if not args.spec:
+        print("trace calibrate needs --spec <declared spec JSON>",
+              file=sys.stderr)
+        return 2
+    trace = trc.load_trace(args.files[0])
+    with open(args.spec) as f:
+        doc = json.load(f)
+    wl_doc = None
+    if "spec" in doc and not isinstance(doc.get("spec"), str):
+        declared = RunSpec.from_dict(doc["spec"])
+        wl_doc = doc.get("workload")
+    else:
+        declared = RunSpec.from_dict(doc)
+    if getattr(args, "workload", ""):
+        with open(args.workload) as f:
+            w = json.load(f)
+        wl_doc = w.get("workload", w)
+    tt = load_workload(wl_doc, args.device) if wl_doc else None
+    result = calibrate_trace(trace, declared, task_times=tt)
+    print(result.summary())
+    if getattr(args, "out", ""):
+        result.spec.save(args.out)
+        print(f"calibrated,{args.out}")
+    return 0
 
 
 def cmd_show(args) -> int:
@@ -265,7 +292,8 @@ def main(argv: Optional[list] = None) -> int:
                        help="dump the full run record(s) as JSON "
                             "(SimResult.to_dict, trace included)")
     p_run.add_argument("--device", default=None,
-                       help="where the mandelbrot workload is computed: "
+                       help="where the mandelbrot workload is computed "
+                            "and adaptive device_sweep forecasts run: "
                             "cuda (default) or cpu")
     p_run.set_defaults(fn=cmd_run)
     p_show = sub.add_parser("show", help="pretty-print a spec file")
@@ -285,6 +313,8 @@ def main(argv: Optional[list] = None) -> int:
                            "(same schema as a run file's 'workload')")
     p_tr.add_argument("-o", "--out", default="",
                       help="calibrate: save the calibrated RunSpec here")
+    p_tr.add_argument("--device", default=None,
+                      help="calibrate: cuda (default) or cpu, as for run")
     p_tr.set_defaults(fn=cmd_trace)
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -86,20 +86,22 @@ def build(spec: RunSpec, backend: engine.WorkerBackend, *,
           adaptive: Any = None,
           task_times: Optional[Sequence[float]] = None,
           queue_cls: type = rdlb.RobustQueue,
-          factory: Any = None):
+          factory: Any = None,
+          sim_device: Any = None):
     """RunSpec -> ready-to-run driver (with its queue and workers).
 
     ``mode="virtual"``/``"threaded"`` build a ``repro_torch.core.engine.Engine``;
-    ``mode="process"``, an adaptive policy from the spec and live
-    metrics raise ``NotImplementedError`` until their modules are
-    ported (ROADMAP.md queue A, items A8-A9).
+    ``mode="process"`` raises ``NotImplementedError`` until its module is
+    ported (ROADMAP.md queue A, item A8).
 
     ``technique`` injects a prebuilt (e.g. pre-warmed) technique instead
     of constructing one from the spec; ``adaptive`` injects a live
     policy object, overriding ``spec.adaptive``; ``task_times`` seeds
     the spec-built adaptive controller's forecast workload (None =
-    unit-cost tasks); ``factory`` is the process-mode child-side runner,
-    kept in the signature for parity with ``repro.api.build``.
+    unit-cost tasks); ``sim_device`` is the torch device of that
+    controller's ``device_sweep`` forecasts (None = the card);
+    ``factory`` is the process-mode child-side runner, kept in the
+    signature for parity with ``repro.api.build``.
     """
     N = n_tasks if n_tasks is not None else spec.n_tasks
     if N is None:
@@ -119,17 +121,20 @@ def build(spec: RunSpec, backend: engine.WorkerBackend, *,
                       barrier_max_duplicates=r.barrier_max_duplicates)
     policy = adaptive
     if policy is None and spec.adaptive.enabled:
-        raise NotImplementedError(
-            "adaptive re-planning (repro.adaptive) is not ported to "
-            "repro_torch yet: ROADMAP.md queue A, item A9")
-    if e.metrics:
-        raise NotImplementedError(
-            "live metrics (repro.obs.MetricsHub) are not ported to "
-            "repro_torch yet: ROADMAP.md queue A, item A9")
+        from repro_torch.adaptive import AdaptiveController  # lazy: no cycle
+        policy = AdaptiveController(task_times=task_times,
+                                    config=spec.adaptive.to_config(),
+                                    sim_device=sim_device)
     recorder = None
-    if e.trace:
+    if e.trace or e.metrics:
         from repro_torch.core import trace as _trc            # lazy import
-        recorder = _trc.TraceRecorder(hub=None, store=True)
+        hub = None
+        if e.metrics:
+            from repro_torch.obs import MetricsHub            # lazy import
+            hub = MetricsHub(n_workers=spec.cluster.n_workers)
+        # metrics without trace: the recorder runs store-less — events
+        # stream through the hub but no rows are kept
+        recorder = _trc.TraceRecorder(hub=hub, store=e.trace)
     if e.mode == "process":
         raise NotImplementedError(
             "mode='process' (repro.cluster) is not ported to repro_torch "
@@ -159,14 +164,16 @@ def simulate(spec: RunSpec, task_times: Sequence[float], *,
              backend: Optional[engine.WorkerBackend] = None,
              technique: Optional[dls.Technique] = None,
              adaptive: Any = None,
-             queue_cls: type = rdlb.RobustQueue) -> "_sim.SimResult":
+             queue_cls: type = rdlb.RobustQueue,
+             sim_device: Any = None) -> "_sim.SimResult":
     """Discrete-event simulation of one RunSpec over ``task_times``.
 
     The scenario-as-data entry point: everything about the run —
     technique, rDLB knobs, worker perturbations, execution mode,
     adaptive policy — comes from the spec; the workload is the nominal
-    per-task times.  Returns the same :class:`SimResult` as the legacy
-    ``simulator.simulate``.
+    per-task times.  ``sim_device`` places a spec-built adaptive
+    policy's ``device_sweep`` forecasts (None = the card).  Returns the
+    same :class:`SimResult` as the legacy ``simulator.simulate``.
     """
     tt = np.asarray(task_times, dtype=float)
     N = len(tt)
@@ -175,7 +182,7 @@ def simulate(spec: RunSpec, task_times: Sequence[float], *,
                          f"has {N} entries")
     eng = build(spec, backend or _sim.SimBackend(tt), n_tasks=N,
                 technique=technique, adaptive=adaptive, task_times=tt,
-                queue_cls=queue_cls)
+                queue_cls=queue_cls, sim_device=sim_device)
     tech_name = eng.queue.technique.name   # adaptive may hot-swap mid-run
     st = run(spec, eng)
     return _sim.SimResult(

@@ -456,9 +456,10 @@ DEFAULT_PORTFOLIO: tuple = (
 
 # Fixed-chunk candidates that lower onto the batched device simulator
 # (core.devicesim): with ``AdaptiveSpec(device_sweep=True)`` the whole
-# portfolio forecasts in ONE jit/vmap call.  Any candidate outside the
-# device regime simply falls back to the scalar engine, so mixing these
-# with DEFAULT_PORTFOLIO entries is safe — just slower.
+# portfolio forecasts in ONE batched torch call, on the card unless the
+# caller names the CPU.  Any candidate outside the device regime simply
+# falls back to the scalar engine, so mixing these with
+# DEFAULT_PORTFOLIO entries is safe — just slower.
 DEVICE_PORTFOLIO: tuple = (
     Candidate("SS"),
     Candidate("STATIC"),
@@ -470,11 +471,11 @@ DEVICE_PORTFOLIO: tuple = (
 # ----------------------------------------------------------------- adaptive
 @dataclasses.dataclass(frozen=True)
 class AdaptiveSpec:
-    """Simulation-in-the-loop re-planning policy (repro.adaptive).
+    """Simulation-in-the-loop re-planning policy (repro_torch.adaptive).
 
     ``enabled=False`` (default) runs the spec statically.  An empty
     ``portfolio`` means :data:`DEFAULT_PORTFOLIO`.  Field semantics match
-    ``repro.adaptive.AdaptiveConfig``.
+    ``repro_torch.adaptive.AdaptiveConfig``.
 
     ``calibrate=True`` makes every portfolio sweep forecast from the
     *calibrated* cluster state instead of the declared one: per-worker
@@ -507,11 +508,24 @@ class AdaptiveSpec:
             for c in self.portfolio))
 
     def to_config(self):
-        """Build the matching ``repro.adaptive.AdaptiveConfig``: not ported
-        to repro_torch yet (ROADMAP.md queue A, item A9)."""
-        raise NotImplementedError(
-            "repro.adaptive.AdaptiveConfig is not ported to repro_torch "
-            "yet: ROADMAP.md queue A, item A9")
+        """Build the matching ``repro_torch.adaptive.AdaptiveConfig``."""
+        from repro_torch.adaptive import AdaptiveConfig  # lazy: no cycle
+        return AdaptiveConfig(
+            portfolio=self.portfolio or DEFAULT_PORTFOLIO,
+            decision_every_chunks=self.decision_every_chunks,
+            decision_every_time=self.decision_every_time,
+            plan_at_start=self.plan_at_start,
+            max_decisions=self.max_decisions,
+            min_remaining=self.min_remaining,
+            hysteresis=self.hysteresis,
+            max_sim_tasks=self.max_sim_tasks,
+            prewarm=self.prewarm,
+            forecast_h=self.forecast_h,
+            seed=self.seed,
+            device_sweep=self.device_sweep,
+            calibrate=self.calibrate,
+            drift_threshold=self.drift_threshold,
+            drift_alpha=self.drift_alpha)
 
     @classmethod
     def from_dict(cls, d: Mapping) -> "AdaptiveSpec":

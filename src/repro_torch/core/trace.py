@@ -125,7 +125,7 @@ class TraceRecorder:
     emission with ``if tr is not None`` — the recorder itself is never
     consulted on an untraced run.
 
-    ``hub`` is an optional :class:`repro.obs.metrics.MetricsHub`: every
+    ``hub`` is an optional :class:`repro_torch.obs.metrics.MetricsHub`: every
     event (including rows merged from worker processes) is streamed into
     it under the same lock, so any driver that can trace can meter.
     ``store=False`` runs the recorder metrics-only: events feed the hub

@@ -32,8 +32,8 @@ Configuration is a declarative :class:`repro_torch.api.RunSpec`
 (``RDLBTrainExecutor(model, spec=spec)``); the legacy keyword vocabulary
 (``technique=``, ``rdlb_enabled=``, ``FaultPlan`` …) still works as a
 shim that builds the equivalent spec under a ``DeprecationWarning``.
-Process mode (``repro.cluster``) and the adaptive policy hook are not
-ported yet: ROADMAP.md queue A, items A8 and A9.
+Process mode (``repro.cluster``) is not ported yet: ROADMAP.md queue A,
+item A8.
 """
 
 from __future__ import annotations
@@ -126,13 +126,17 @@ class RDLBTrainExecutor:
     spec:        a :class:`repro_torch.api.RunSpec` — scheduling technique,
                  rDLB knobs, cluster (worker count + perturbations),
                  execution mode (``"threaded"`` = real OS threads whose
-                 duplicates race in wall-clock time).  ``spec.n_tasks`` is
-                 the grad-accum microbatches per global step.
+                 duplicates race in wall-clock time), adaptive policy.
+                 ``spec.n_tasks`` is the grad-accum microbatches per
+                 global step.
     optimizer/lr/grad_clip/loss_fn: training-side knobs (not scheduling
                  — deliberately outside the spec).
     exact_accumulation: store per-task grads and reduce in task order —
                  bit-identical results regardless of schedule (used by the
                  equality tests); False accumulates in arrival order.
+    adaptive:    optional live adaptive policy object
+                 (repro_torch.adaptive.AdaptiveController), overriding
+                 ``spec.adaptive``.
 
     The model runs where the parameters lie; a step moves each task's
     rows of the batch (numpy arrays or tensors) there.
@@ -149,7 +153,8 @@ class RDLBTrainExecutor:
                  grad_clip: float = 1.0, exact_accumulation: bool = False,
                  max_duplicates: Any = _UNSET,
                  loss_fn: Optional[Callable] = None,
-                 concurrent: Any = _UNSET):
+                 concurrent: Any = _UNSET,
+                 adaptive: Optional[Any] = None):
         legacy = {k: v for k, v in dict(
             n_workers=n_workers, n_tasks=n_tasks, technique=technique,
             rdlb_enabled=rdlb_enabled, max_duplicates=max_duplicates,
@@ -175,6 +180,7 @@ class RDLBTrainExecutor:
         self.n_tasks = spec.n_tasks
         self.model = model
         self.exact_accumulation = exact_accumulation
+        self.adaptive = adaptive
         self.opt = make_optimizer(optimizer, lr=lr)
         self.grad_clip = grad_clip
         self._loss_fn = loss_fn or (lambda p, b: model.loss(p, b)[0])
@@ -224,7 +230,8 @@ class RDLBTrainExecutor:
             lambda t: value_and_grad(self._loss_fn, params,
                                      self._task_batch(batch, t, dev)),
             exact_accumulation=self.exact_accumulation)
-        eng = api.build(spec, backend, n_tasks=self.n_tasks)
+        eng = api.build(spec, backend, n_tasks=self.n_tasks,
+                        adaptive=self.adaptive)
         for ew, w in zip(eng.workers, self.workers):
             ew.tasks_done = w.tasks_done     # count-based fail-stop state
         stats = api.run(spec, eng)

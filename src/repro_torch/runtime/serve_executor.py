@@ -26,7 +26,7 @@ item A8.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -170,14 +170,18 @@ class RDLBServeExecutor:
     ``speed``) or count-based fail-stops (``fail_after_tasks``) there, or
     pass ``fail_at`` to :meth:`serve`.  A replica that fail-stops stays
     dead for later ``serve`` calls.  The model runs where its ``params``
-    lie.  The reference's legacy keywords (``n_workers=``, …) and its
-    adaptive policy hook are not taken.
+    lie.  ``adaptive`` is an optional live adaptive policy object
+    (``repro_torch.adaptive.AdaptiveController``; requests are unit-cost
+    tasks), overriding ``spec.adaptive``.  The reference's legacy
+    keywords (``n_workers=``, …) are not taken.
     """
 
-    def __init__(self, model, params, *, spec: Optional[api.RunSpec] = None):
+    def __init__(self, model, params, *, spec: Optional[api.RunSpec] = None,
+                 adaptive: Optional[Any] = None):
         self.spec = spec if spec is not None else api.serve_spec()
         self.model = model
         self.params = params
+        self.adaptive = adaptive
         self._generator = FusedGenerator(model)
         self.dead: set[int] = {wid for wid, w in
                                enumerate(self.spec.cluster.worker_specs())
@@ -200,7 +204,7 @@ class RDLBServeExecutor:
                                                 fail_at=fail_at or {})
         spec = spec.replace(cluster=cluster, n_tasks=N)
         backend = ServeBackend(requests, self._generate_chunk)
-        eng = api.build(spec, backend, n_tasks=N)
+        eng = api.build(spec, backend, n_tasks=N, adaptive=self.adaptive)
         stats = api.run(spec, eng)
         for ew in eng.workers:              # fail-stops persist
             if not ew.alive:

@@ -22,6 +22,10 @@ _PROBE = textwrap.dedent("""
     from repro_torch.apps import mandelbrot
     img = mandelbrot.escape_counts(64, 32, device="cpu")
     assert img.shape == (64, 64) and img.sum() > 0, img.sum()
+    for pkg in ("repro_torch.adaptive", "repro_torch.obs",
+                "repro_torch.core.devicesim", "repro_torch.core.theory",
+                "repro_torch.core.refqueue"):
+        assert pkg in sys.modules, pkg
     bad = sorted(k for k in sys.modules
                  if k == "jax" or k.startswith("jax.")
                  or k == "repro" or k.startswith("repro."))

@@ -17,6 +17,9 @@ autograd through the plain version) within 1e-5 (float32) and 2**-6
 (bfloat16) of their largest magnitude.  Its bfloat16 output adds
 ``kf.bf16_p_bound``: the wgmma variant rounds P to bfloat16 before P V
 (as the TPU's matrix unit did), the plain version keeps it float32.
+The batched simulator (``core/devicesim``, batched PyTorch ops) on the
+card against the same call on the CPU: t_par within 1e-9, every flag and
+integer field identical.
 """
 
 import numpy as np
@@ -435,3 +438,68 @@ def test_bf16_training_path_launches_the_wgmma_variant(cuda):
     assert after == before + cfg.n_layers
     assert torch.isfinite(torch.as_tensor(float(loss)))
     assert all(bool(torch.isfinite(g).all()) for g in tree_leaves(grads))
+
+
+# ------------------------------------------- the batched simulator on the card
+def _same_batch(got, want):
+    """t_par (and the other float fields) within 1e-9 with infinities in
+    the same places; flags and integer fields identical."""
+    import dataclasses
+    for f in dataclasses.fields(got):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        if a.dtype.kind == "f":
+            assert np.array_equal(np.isinf(a), np.isinf(b)), f.name
+            fin = np.isfinite(b)
+            assert np.allclose(a[fin], b[fin], rtol=0, atol=1e-9), f.name
+        else:
+            assert np.array_equal(a, b), f.name
+
+
+def _sim_spec(tech, P, rdlb=True):
+    from repro_torch import api
+    from repro_torch.core import faults
+    return api.RunSpec(
+        scheduling=api.SchedulingSpec(technique=tech),
+        robustness=api.RobustnessSpec(rdlb_enabled=rdlb),
+        cluster=api.ClusterSpec.from_scenario(faults.baseline(P)),
+        execution=api.ExecutionSpec(h=1e-4))
+
+
+@pytest.mark.parametrize("P", [4, 16, 64])
+def test_devicesim_grid_on_card_equals_cpu(cuda, P):
+    """The clean grid (SS / STATIC / mFSC / FSC, divisible, partial-chunk
+    and tiny workloads, rdlb on and off) in one batch a workload: the
+    card's batch equals the CPU's."""
+    from repro_torch.core import devicesim
+    for N in (4 * P, 4 * P + 3, 100):
+        times = np.full(N, 0.01)
+        lows = [devicesim.lower_run(_sim_spec(t, P, rd), times)[0]
+                for t in ("SS", "STATIC", "mFSC", "FSC")
+                for rd in (True, False)]
+        before = devicesim.batch_calls("cuda")
+        got = devicesim.simulate_many(lows, device=cuda)
+        assert devicesim.batch_calls("cuda") > before
+        assert got.valid.all()
+        _same_batch(got, devicesim.simulate_many(lows, device="cpu"))
+
+
+@pytest.mark.parametrize("rdlb", [True, False], ids=["rdlb", "no_rdlb"])
+def test_devicesim_monte_carlo_on_card_equals_cpu(cuda, rdlb):
+    """An MC batch at P = 8: three techniques x 64 paired fail-stop draws
+    of 1 to 7 victims (the transaction tail), on the card and the CPU."""
+    from repro_torch.core import devicesim
+    P, N, D = 8, 200, 64
+    times = np.full(N, 0.01)
+    lows = [devicesim.lower_run(_sim_spec(t, P, rdlb), times)[0]
+            for t in ("SS", "mFSC", "FSC")]
+    rng = np.random.default_rng(11)
+    fail = np.full((D, P), np.inf)
+    for d in range(D):
+        k = 1 + d % (P - 1)
+        v = rng.choice(np.arange(1, P), size=k, replace=False)
+        fail[d, v] = rng.uniform(0.02, 0.2, size=k)
+    kw = dict(tech_of=np.repeat(np.arange(3, dtype=np.int32), D),
+              fail_times=np.tile(fail, (3, 1)))
+    got = devicesim.simulate_many(lows, device=cuda, **kw)
+    _same_batch(got, devicesim.simulate_many(lows, device="cpu", **kw))
+    assert got.valid.any() and got.hung.any() != rdlb

@@ -250,10 +250,18 @@ def test_cli_run_matches_reference(workload, tmp_path, capsys):
 
 
 def test_cli_trace_calibrate_raises(tmp_path):
+    """``trace calibrate`` is ported (tests/test_torch_obs.py holds its
+    output to the reference's): a missing trace file raises as the
+    reference's does, and a missing ``--spec`` is a usage error."""
+    from repro.api import cli as jcli
     from repro_torch.api import cli as tcli
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(FileNotFoundError):
         tcli.main(["trace", "calibrate", str(tmp_path / "t.json"),
                    "--spec", str(tmp_path / "s.json")])
+    with pytest.raises(FileNotFoundError):
+        jcli.main(["trace", "calibrate", str(tmp_path / "t.json"),
+                   "--spec", str(tmp_path / "s.json")])
+    assert tcli.main(["trace", "calibrate", str(tmp_path / "t.json")]) == 2
 
 
 # ------------------------------------------------- wrapper input checks

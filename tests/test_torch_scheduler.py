@@ -85,11 +85,18 @@ def test_fault_scenarios_identical(scenario):
 
 
 def test_unported_paths_raise():
-    """Process mode, adaptive re-planning and live metrics need modules
-    of later slices: each raises instead of running something else."""
+    """Process mode needs a module of a later slice: it raises instead of
+    running something else.  Adaptive re-planning and live metrics are
+    ported: the engine carries a controller and a metrics hub."""
     base = tapi.RunSpec(cluster=tapi.ClusterSpec(n_workers=2), n_tasks=4)
-    for spec in (base.override("execution.mode", "process"),
-                 base.override("adaptive.enabled", True),
-                 base.override("execution.metrics", True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tapi.build(spec, tsim.SimBackend(np.ones(4)))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tapi.build(base.override("execution.mode", "process"),
+                   tsim.SimBackend(np.ones(4)))
+    from repro_torch.adaptive import AdaptiveController
+    eng = tapi.build(base.override("adaptive.enabled", True),
+                     tsim.SimBackend(np.ones(4)))
+    assert isinstance(eng.adaptive, AdaptiveController)
+    st = tapi.run(base.override("execution.metrics", True),
+                  tapi.build(base.override("execution.metrics", True),
+                             tsim.SimBackend(np.ones(4))))
+    assert st.metrics["finished"] == 4
