@@ -44,7 +44,13 @@ Phases, each fatal when it fails:
      T = 37, 64 and 1000 and at BH = 256 with T = 64, with w = 0.01, the
      state written in place and a repeated launch (bit for bit), each
      with its column split (CTAs a head) printed and timed beside its
-     bound;
+     bound; WKV6BatchedFn (the wkv6_batched kernel's forward, the
+     backward in PyTorch ops) against autograd through the plain version
+     at the training shape (BH = 32, T = 4,096, bfloat16), a ragged
+     T = 1,000 in float32 and bfloat16 and under strong decay (w = 0.01),
+     every gradient within 1e-4 (float32) or 2**-6 (bfloat16) of its
+     largest magnitude, and one backward at the training shape timed
+     beside the kernel's forward, with the kernels it launches;
   3. drive the paper's main path through the public API: threaded rDLB
      self-scheduling of the paper's Mandelbrot (512 x 512, 256
      iterations, SS, P=4) and PSIA (20,000 spin images over 16,384
@@ -83,7 +89,16 @@ Phases, each fatal when it fails:
      losses finite, and flash_attention must have launched on the path,
      every launch of a step in its wgmma variant; a float32 copy cut to 2
      layers gives loss and gradients through the kernel within a stated
-     tolerance of the plain path's, both on the card;
+     tolerance of the plain path's, both on the card.  Then the same for
+     rwkv6-1.6b at full width and depth (8 x 4,096 tokens, the
+     reference's train_4k cell), whose wkv6_batched must have launched
+     on its training path (twice a layer: every layer is rematerialised,
+     as every olmo-1b layer is under its ``remat_policy``); step seconds,
+     tokens/s, duplicates, peak memory and one profiled task of each; and
+     the train CLI's checkpoint/restart on the card (``--smoke --no-rdlb
+     --fail 2:1 --ckpt-dir <tmp> --ckpt-interval 1``, both archs): the
+     hung step restores the last checkpoint and the run finishes with the
+     losses of a failure-free run;
   6. the batched simulator (``core/devicesim``, no kernel: batched
      float64 PyTorch ops) at the reference's benchmark sizes:
      ``benchmarks/fig_scale.py``'s device sweep point (P = 1024, N =
@@ -797,6 +812,7 @@ WKV_BATCHED = ((32, 37), (32, 64), (32, 1000), (256, 64))
 WKV_ROW = {"wkv6_decode": 256, "wkv6_batched": (256, 64)}
 
 
+
 def wkv_inputs(dev, gen, BH, T, dk, dtype, *, w=None):
     """r, k, v, w, u in ``dtype`` and a float32 state; T = 0 gives one
     step's (BH, dk) inputs.  w as the model makes it (exp(-exp(x)) near
@@ -932,7 +948,79 @@ def compare_wkv6_kernels(dev) -> dict:
     rows["wkv6_batched"]["max_abs_err"] = err
     for name in rows:
         rows[name]["shapes"] = [t for k, t in timed if k == name]
+    rows["wkv6_batched"]["backward"] = compare_wkv6_grads(dev)
     return rows
+
+
+def wkv6_grads(fn, ins, dy, ds):
+    """Gradients of sum(y dy) + sum(S ds) through ``fn`` by autograd."""
+    import torch
+    leaves = [t.detach().clone().requires_grad_() for t in ins]
+    y, s = fn(*leaves)
+    return torch.autograd.grad((y.float() * dy).sum() + (s * ds).sum(),
+                               leaves)
+
+
+def compare_wkv6_grads(dev) -> dict:
+    """WKV6BatchedFn (the kernel's forward, the backward's PyTorch ops)
+    against autograd through wkv6_batched_plain on the card at
+    WKV_GRAD_CASES, every gradient (the state's included) within
+    WKV_GRAD_TOL of its largest magnitude; then one backward at the
+    training shape as the training path calls it (no state gradient, no
+    final-state gradient) timed beside the kernel's forward: ms per call
+    (CUDA events around back-to-back calls, host work included), ms as a
+    CUDA graph (the device alone) and the kernels one backward launches
+    (a profiler trace)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import rwkv6_scan as kw
+    gen = torch.Generator().manual_seed(6)
+    dk = dv = get_config("rwkv6-1.6b").rwkv_head_dim
+    for BH, T, name, w in WKV_GRAD_CASES:
+        dtype = getattr(torch, name)
+        ins = wkv_inputs(dev, gen, BH, T, dk, dtype, w=w)
+        dy = torch.randn((BH, T, dv), generator=gen).to(dev)
+        ds = torch.randn((BH, dk, dv), generator=gen).to(dev)
+        got = wkv6_grads(kw.wkv6_batched_train, ins, dy, ds)
+        want = wkv6_grads(kw.wkv6_batched_plain, ins, dy, ds)
+        torch.cuda.synchronize()
+        tol = WKV_GRAD_TOL[name]
+        rel = max(float((g.float() - x.float()).abs().max()
+                        / x.float().abs().max()) for g, x in zip(got, want))
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        print(f"compare,wkv6_batched_grad,BH={BH},T={T},{dk}x{dv},{name},"
+              f"w={w or 'model'},max_rel_err={rel},tolerance={tol}")
+        if not (finite and rel <= tol):
+            fail(f"WKV6BatchedFn gradients (BH={BH}, T={T}, {name}, w={w})"
+                 f" differ from autograd through the plain version by {rel}"
+                 f" of their largest magnitude (tolerance {tol})")
+        del got, want
+        torch.cuda.empty_cache()
+    BH, T = 32, TRAIN_RWKV_SEQ
+    ins = wkv_inputs(dev, gen, BH, T, dk, torch.bfloat16)
+    dy = torch.randn((BH, T, dv), generator=gen).to(dev)
+    fwd = lambda: kw.wkv6_batched(*ins)  # noqa: E731
+    bwd = lambda: kw.wkv6_batched_backward(*ins, dy, None)  # noqa: E731
+    b, by = wkv6_batched_bound(BH, T, dk, dv, kw.CHUNK)
+    out = dict(shape=f"BH={BH} T={T} {dk}x{dv}, bf16 inputs",
+               forward_ms=graph_ms(fwd, 10), forward_bound_ms=b,
+               forward_bound_by=by, ms=call_ms(bwd, 5),
+               graph_ms=graph_ms(bwd, 3))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        bwd()
+        torch.cuda.synchronize()
+    kernels = device_events(prof)
+    out["kernels"] = sum(e.count for e in kernels)
+    out["device_ms"] = sum(device_us(e) for e in kernels) / 1e3
+    print(f"wkv6_batched_backward,timed {out['shape']}: "
+          f"forward_ms={out['forward_ms']},forward_bound_ms={b} ({by}),"
+          f"backward_ms={out['ms']},"
+          f"backward_graph_ms={out['graph_ms']},"
+          f"backward_device_ms={out['device_ms']},"
+          f"kernels={out['kernels']}")
+    return out
 
 
 # ------------------------------------------------------------ phase 4
@@ -989,7 +1077,8 @@ def plain_versions():
     swap = {"flash_decode_gqa": kf.flash_decode_gqa_plain,
             "flash_attention_gqa": kf.flash_attention_gqa_plain,
             "wkv6_decode": with_out(kw.wkv6_decode_plain),
-            "wkv6_batched": with_out(kw.wkv6_batched_plain)}
+            "wkv6_batched": with_out(kw.wkv6_batched_plain),
+            "wkv6_batched_train": kw.wkv6_batched_plain}
     saved = {name: getattr(ops, name) for name in swap}
     before = dispatch.launches()
     for name, fn in swap.items():
@@ -1174,6 +1263,39 @@ def drive_serving(dev, arch: str) -> dict:
 TRAIN_ARCH = "olmo-1b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_TASKS = 8, 2048, 8
 TRAIN_WORKERS, TRAIN_STEPS, TRAIN_FAIL_STEP = 4, 3, 1
+# rwkv6-1.6b trains the same way at rows of TRAIN_RWKV_SEQ tokens: the
+# reference's own training cell for it (train_4k).  Each run: (row
+# length, the kernel that carries it).
+TRAIN_RWKV_SEQ = 4096
+TRAIN_RUNS = {"olmo-1b": (TRAIN_SEQ, "flash_attention"),
+              "rwkv6-1.6b": (TRAIN_RWKV_SEQ, "wkv6_batched")}
+# The train CLI's checkpoint/restart on the card, at its smoke configs.
+TRAIN_CKPT_ARGS = ["--smoke", "--steps", "4", "--global-batch", "4",
+                   "--seq-len", "64", "--n-workers", "2", "--n-tasks", "2",
+                   "--no-rdlb"]
+RESTART_FAIL_STEP = 2
+# WKV6BatchedFn's gradients (phase 2): rwkv6-1.6b's training shape (one
+# row, BH = 32), a ragged T in both dtypes and strong decay; against
+# autograd through the plain version, within 1e-4 of each gradient's
+# largest magnitude in float32 (the two sum in other orders through 32
+# to 128 chunks) and 2**-6 in bfloat16 (each rounds its float32 gradient
+# to 8 significant bits)
+WKV_GRAD_CASES = (  # (BH, T, dtype, w)
+    (32, TRAIN_RWKV_SEQ, "bfloat16", None), (32, 1000, "float32", None),
+    (32, 1000, "bfloat16", None), (32, 1000, "float32", 0.01),
+    (32, TRAIN_RWKV_SEQ, "bfloat16", 0.01))
+WKV_GRAD_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -6}
+# rwkv6's float32 check copy runs twice: at the seeded weights, as the
+# training runs have them, and with the time-first bonus u and the decay
+# offset w0 of every layer drawn from N(0, 0.5) (CHECK_DRAW_SEED), as a
+# trained model has them.  At the seeded weights u = 0 and the state
+# starts at 0, so every head's first output is exactly 0 and the group
+# norm's backward multiplies by 1 / sqrt(eps) there: the plain path alone
+# then moves u's gradient by about 1.5e-3 of its size between the card
+# and the CPU (printed beside each case), so the seeded case holds within
+# SEEDED_RWKV_GRAD_TOL, and the drawn case within GRAD_TOL["model"].
+CHECK_DRAW_SEED = 3
+SEEDED_RWKV_GRAD_TOL = 1e-3
 # The float32 check copy: 2 layers, full width, one row of a ragged S.
 CHECK_SEQ = 1000
 # Gradient tolerances, relative to each gradient's largest magnitude:
@@ -1333,8 +1455,8 @@ def sdpa_backend(library) -> str:
     return "; ".join(n[:100] for n in names) or "unknown"
 
 
-def profile_train_task(model, params) -> None:
-    """One training task (forward and backward of one 2048-token row,
+def profile_train_task(model, params, seq: int) -> None:
+    """One training task (forward and backward of one ``seq``-token row,
     as a worker runs it) timed alone and then traced: its wall time, the
     device's busy time and share, kernels launched, and the kernels that
     take the most device time."""
@@ -1342,7 +1464,8 @@ def profile_train_task(model, params) -> None:
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.data import as_tensors, batch_for_step
     from repro_torch.runtime.executor import value_and_grad
-    batch = as_tensors(batch_for_step(model.cfg, 0, 1, TRAIN_SEQ),
+    arch = model.cfg.name
+    batch = as_tensors(batch_for_step(model.cfg, 0, 1, seq),
                        params["embed"].device)
     fn = lambda p, b: model.loss(p, b)[0]  # noqa: E731
     value_and_grad(fn, params, batch)
@@ -1359,10 +1482,10 @@ def profile_train_task(model, params) -> None:
     busy = sum(device_us(e) for e in kernels) / 1e6
     top = [(e.key[:60], e.count, round(device_us(e) / 1e3, 3),
             round(device_us(e) / 1e6 / busy, 3))
-           for e in sorted(kernels, key=device_us, reverse=True)[:6]]
-    print(f"train,{TRAIN_ARCH},profiled task (1 x {TRAIN_SEQ} tokens, "
-          f"forward and backward): wall_s={wall:.4f},device_busy_s="
-          f"{busy:.4f},busy_share={busy / wall:.3f},kernels="
+           for e in sorted(kernels, key=device_us, reverse=True)[:8]]
+    print(f"train,{arch},profiled task (1 x {seq} tokens, forward, "
+          f"recomputed forward and backward): wall_s={wall:.4f},"
+          f"device_busy_s={busy:.4f},busy_share={busy / wall:.3f},kernels="
           f"{sum(e.count for e in kernels)},top device kernels (name, "
           f"calls, ms, share of busy)={top}")
 
@@ -1378,11 +1501,13 @@ def params_on_host(params) -> list:
     return [t.detach().to("cpu") for t in tree_leaves(params)]
 
 
-def run_training(model, params, *, failing: bool, reference=None):
-    """TRAIN_STEPS threaded rDLB steps from ``params``.  With
-    ``failing``, worker 1 fail-stops during step TRAIN_FAIL_STEP, at its
-    first assignment there, holding that chunk.  Returns (per-step host
-    copies of the parameters, per-step records); with ``reference`` (a
+def run_training(model, params, *, seq: int, site: str, failing: bool,
+                 reference=None):
+    """TRAIN_STEPS threaded rDLB steps of TRAIN_BATCH rows of ``seq``
+    tokens from ``params``.  With ``failing``, worker 1 fail-stops during
+    step TRAIN_FAIL_STEP, at its first assignment there, holding that
+    chunk.  Returns (per-step host copies of the parameters, per-step
+    records with the launches of kernel ``site``); with ``reference`` (a
     failure-free run's copies) each step's parameters must equal it bit
     for bit."""
     import math
@@ -1399,11 +1524,11 @@ def run_training(model, params, *, failing: bool, reference=None):
     opt_state = ex.opt.init(params)
     snaps, records = [], []
     for step in range(TRAIN_STEPS):
-        batch = batch_for_step(model.cfg, step, TRAIN_BATCH, TRAIN_SEQ)
+        batch = batch_for_step(model.cfg, step, TRAIN_BATCH, seq)
         if failing and step == TRAIN_FAIL_STEP:
             w = ex.workers[1]
             w.fail_after_tasks = w.tasks_done
-        before = dispatch.launches("flash_attention")
+        before = dispatch.launches(site)
         before_wgmma = wgmma_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1415,12 +1540,12 @@ def run_training(model, params, *, failing: bool, reference=None):
                  f"{res.hung}, loss={res.loss}")
         params, opt_state = res.params, res.opt_state
         rec = dict(step=step, loss=res.loss, seconds=dt,
-                   tokens_s=TRAIN_BATCH * TRAIN_SEQ / dt,
+                   tokens_s=TRAIN_BATCH * seq / dt,
                    n_duplicates=res.n_duplicates, wasted=res.wasted_tasks,
-                   by_worker=res.tasks_by_worker, survivors=res.survivors,
-                   flash_attention_launches=dispatch.launches(
-                       "flash_attention") - before,
-                   wgmma_launches=wgmma_launches() - before_wgmma)
+                   by_worker=res.tasks_by_worker, survivors=res.survivors)
+        rec[f"{site}_launches"] = dispatch.launches(site) - before
+        if site == "flash_attention":
+            rec["wgmma_launches"] = wgmma_launches() - before_wgmma
         records.append(rec)
         snap = params_on_host(params)
         if reference is not None:
@@ -1435,88 +1560,168 @@ def run_training(model, params, *, failing: bool, reference=None):
     return snaps, records
 
 
-def drive_training(dev) -> int:
-    """Phase 5's training runs; returns flash_attention's launches in the
-    fail-stop run (counts set to 0 just before it, read just after)."""
+def drive_training(dev, arch: str) -> int:
+    """Phase 5's training runs of ``arch`` (TRAIN_RUNS); returns its
+    kernel's launches in the fail-stop run (counts set to 0 just before
+    it, read just after)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import dispatch
     from repro_torch.models import build_model
-    cfg = get_config(TRAIN_ARCH)
+    seq, site = TRAIN_RUNS[arch]
+    cfg = get_config(arch)
     model = build_model(cfg)
     params = model.init(0, device=dev)
     n_params = sum(p.numel() for p in params.parameters())
-    print(f"train,{TRAIN_ARCH},params={n_params},{cfg.dtype},"
-          f"global_batch={TRAIN_BATCH}x{TRAIN_SEQ},tasks={TRAIN_TASKS},"
+    print(f"train,{arch},params={n_params},{cfg.dtype},"
+          f"global_batch={TRAIN_BATCH}x{seq},tasks={TRAIN_TASKS},"
           f"workers={TRAIN_WORKERS},technique=FAC,optimizer=adamw,"
-          f"steps={TRAIN_STEPS}")
+          f"steps={TRAIN_STEPS},remat=each layer")
     torch.cuda.reset_peak_memory_stats()
-    calm, calm_rec = run_training(model, params, failing=False)
+    calm, calm_rec = run_training(model, params, seq=seq, site=site,
+                                  failing=False)
     for r in calm_rec:
-        print(f"train,{TRAIN_ARCH},failure-free,{json.dumps(r)}")
+        print(f"train,{arch},failure-free,{json.dumps(r)}")
     dispatch.reset_launches()
-    _, rec = run_training(model, params, failing=True, reference=calm)
+    _, rec = run_training(model, params, seq=seq, site=site, failing=True,
+                          reference=calm)
     launches = dispatch.launches()
-    status = dispatch.status("flash_attention")
+    status = dispatch.status(site)
     for r in rec:
-        print(f"train,{TRAIN_ARCH},fail-stop,{json.dumps(r)}")
+        print(f"train,{arch},fail-stop,{json.dumps(r)}")
     variants = dispatch.variant_launches("flash_attention")
-    print(f"launches on the {TRAIN_ARCH} training path: {launches}; "
+    print(f"launches on the {arch} training path: {launches}; "
           f"flash_attention by variant: {variants}")
-    if launches.get("flash_attention", 0) <= 0 or status.get("path") != (
-            "cuda"):
-        fail(f"flash_attention was not launched on the training path "
+    if launches.get(site, 0) <= 0 or status.get("path") != "cuda":
+        fail(f"{site} was not launched on the {arch} training path "
              f"({launches}, {status})")
     for r in rec:
-        if not 0 < r["wgmma_launches"] == r["flash_attention_launches"]:
+        if site == "flash_attention" and not (
+                0 < r["wgmma_launches"] == r["flash_attention_launches"]):
             fail(f"training step {r['step']}: {r['wgmma_launches']} wgmma "
                  f"launches of {r['flash_attention_launches']} "
                  f"flash_attention launches")
     if (rec[TRAIN_FAIL_STEP]["n_duplicates"] < 1
             or 1 in rec[TRAIN_FAIL_STEP]["survivors"]):
-        fail("the fail-stop training run lost no worker or issued no "
-             "rDLB duplicate")
-    print(f"train,{TRAIN_ARCH}: parameters after every step under the "
-          f"fail-stop equal the failure-free run's bit for bit; "
+        fail(f"the {arch} fail-stop training run lost no worker or issued "
+             f"no rDLB duplicate")
+    print(f"train,{arch}: parameters after every step under the fail-stop "
+          f"equal the failure-free run's bit for bit; "
           f"max_memory_allocated_GB="
           f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
-    profile_train_task(model, params)
+    profile_train_task(model, params, seq)
     del model, params, calm
     torch.cuda.empty_cache()
-    return launches["flash_attention"]
+    return launches[site]
 
 
-def check_train_float32(dev) -> None:
-    """A float32 copy of olmo-1b cut to 2 layers (full width): loss and
-    gradients through the kernel against the plain path, both on the
-    card."""
+def grad_gap(got, want) -> tuple:
+    """(largest difference, leaf) of two gradient trees, each leaf's
+    relative to its largest magnitude in ``want``; a leaf that is 0 in
+    ``want`` must be 0 in ``got`` (else the gap is vast)."""
+    import torch
+    from repro_torch.models.common import tree_leaves, tree_named_leaves
+    tiny = torch.finfo(torch.float32).tiny
+    return max(
+        (float((g.to(w.device) - w).abs().max()
+               / w.abs().max().clamp(min=tiny)), name)
+        for (name, g), w in zip(tree_named_leaves(got).items(),
+                                tree_leaves(want)))
+
+
+def draw_check_weights(params) -> None:
+    """u and w0 of every rwkv6 layer from N(0, 0.5), seeded (see
+    CHECK_DRAW_SEED), in place."""
+    import torch
+    gen = torch.Generator(device=params["embed"].device)
+    gen.manual_seed(CHECK_DRAW_SEED)
+    for lp in params["layers"]:
+        for key in ("u", "w0"):
+            lp["att"][key].data.normal_(0.0, 0.5, generator=gen)
+
+
+def check_train_float32(dev, arch: str) -> None:
+    """A float32 copy of ``arch`` cut to 2 layers (full width): loss and
+    gradients of one CHECK_SEQ-token row through the kernels against the
+    plain path, both on the card; for rwkv6 at the seeded and at drawn
+    weights (see CHECK_DRAW_SEED), each beside the plain path on the CPU."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data import as_tensors, batch_for_step
     from repro_torch.models import build_model
-    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.common import tree_map
     from repro_torch.runtime.executor import value_and_grad
-    cfg = get_config(TRAIN_ARCH).replace(n_layers=2, dtype="float32")
+    cfg = get_config(arch).replace(n_layers=2, dtype="float32")
     model = build_model(cfg)
-    params = model.init(1, device=dev)
-    batch = as_tensors(batch_for_step(cfg, 0, 1, CHECK_SEQ), dev)
+    rows = batch_for_step(cfg, 0, 1, CHECK_SEQ)
+    batch = as_tensors(rows, dev)
     loss_fn = lambda p, b: model.loss(p, b)[0]  # noqa: E731
-    loss, grads = value_and_grad(loss_fn, params, batch)
-    with plain_versions():
-        ploss, pgrads = value_and_grad(loss_fn, params, batch)
-    torch.cuda.synchronize()
-    dl = abs(float(loss) - float(ploss)) / abs(float(ploss))
-    worst = max(float((g - w).abs().max() / w.abs().max())
-                for g, w in zip(tree_leaves(grads), tree_leaves(pgrads)))
-    print(f"check,{TRAIN_ARCH},float32 2 layers,S={CHECK_SEQ}: loss "
-          f"{float(loss)} vs plain {float(ploss)} (rel {dl}), gradients "
-          f"max_rel_err={worst},tolerance={GRAD_TOL['model']}")
-    if not (dl <= 1e-5 and worst <= GRAD_TOL["model"]):
-        fail("float32 2-layer loss or gradients through the kernel differ "
-             "from the plain path's")
-    del model, params, grads, pgrads
-    torch.cuda.empty_cache()
+    rwkv = arch == "rwkv6-1.6b"
+    cases = ((("seeded weights", SEEDED_RWKV_GRAD_TOL),
+              ("u and w0 drawn", GRAD_TOL["model"])) if rwkv
+             else (("seeded weights", GRAD_TOL["model"]),))
+    for label, tol in cases:
+        params = model.init(1, device=dev)
+        if label != "seeded weights":
+            draw_check_weights(params)
+        loss, grads = value_and_grad(loss_fn, params, batch)
+        with plain_versions():
+            ploss, pgrads = value_and_grad(loss_fn, params, batch)
+        torch.cuda.synchronize()
+        dl = abs(float(loss) - float(ploss)) / abs(float(ploss))
+        worst, leaf = grad_gap(grads, pgrads)
+        witness = ""
+        if rwkv:
+            closs, cgrads = value_and_grad(
+                loss_fn, tree_map(torch.Tensor.cpu, params),
+                as_tensors(rows, "cpu"))
+            cw, cleaf = grad_gap(pgrads, cgrads)
+            witness = (f"; plain path card vs CPU: loss rel "
+                       f"{abs(float(ploss) - float(closs)) / abs(float(closs))}"
+                       f", gradients max_rel_err={cw} (at {cleaf})")
+            del cgrads
+        print(f"check,{arch},float32 2 layers,S={CHECK_SEQ},{label}: loss "
+              f"{float(loss)} vs plain {float(ploss)} (rel {dl}), gradients "
+              f"max_rel_err={worst} (at {leaf}),tolerance={tol}{witness}")
+        if not (dl <= 1e-5 and worst <= tol):
+            fail(f"{arch} float32 2-layer loss or gradients through the "
+                 f"kernels differ from the plain path's ({label})")
+        del params, grads, pgrads
+        torch.cuda.empty_cache()
+    del model
 
+
+def restart_on_the_card() -> None:
+    """The train CLI's checkpoint/restart on the card (TRAIN_CKPT_ARGS):
+    worker 1 fail-stops in step RESTART_FAIL_STEP of a run without rDLB,
+    the step hangs, the CLI restores the checkpoint written after the
+    step before and finishes; its losses equal a failure-free run's at
+    every step.  Two workers and two tasks: two gradients sum to the
+    same bits in either arrival order."""
+    import io
+    import math
+    import tempfile
+    from repro_torch.launch import train as ttrain
+    for arch in SERVE_ARCHS:
+        args = ["--arch", arch, *TRAIN_CKPT_ARGS]
+        with tempfile.TemporaryDirectory() as tmp:
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                losses = ttrain.main(args + [
+                    "--fail", f"{RESTART_FAIL_STEP}:1", "--ckpt-dir", tmp,
+                    "--ckpt-interval", "1"])
+                calm = ttrain.main(args)
+        text = out.getvalue()
+        hung = f"step {RESTART_FAIL_STEP}: HUNG" in text
+        restored = (f"restored checkpoint at step {RESTART_FAIL_STEP}"
+                    in text)
+        print(f"restart,{arch},hung={hung},restored={restored},"
+              f"losses={losses},failure-free={calm}")
+        if not (hung and restored and len(losses) == len(calm)
+                and all(math.isfinite(x) for x in losses)
+                and losses == calm):
+            fail(f"{arch}: the train CLI did not restore and finish with "
+                 f"the failure-free run's losses")
 
 
 # ------------------------------------------------------------ phase 6
@@ -1926,8 +2131,12 @@ def main() -> int:
             rows[site]["launches"] = n
 
     # phase 5: training, with its own launch counts
-    rows["flash_attention"]["launches"] = drive_training(dev)
-    check_train_float32(dev)
+    rows["flash_attention"]["launches"] = drive_training(dev, TRAIN_ARCH)
+    check_train_float32(dev, TRAIN_ARCH)
+    rows["wkv6_batched"]["launches_training"] = drive_training(
+        dev, "rwkv6-1.6b")
+    check_train_float32(dev, "rwkv6-1.6b")
+    restart_on_the_card()
 
     # phase 6: the batched simulator and adaptive re-planning
     t0 = time.perf_counter()

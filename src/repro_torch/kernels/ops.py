@@ -9,7 +9,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: F401
     flash_attention, flash_attention_gqa, flash_decode, flash_decode_gqa)
 from repro_torch.kernels.mandelbrot import mandelbrot  # noqa: F401
 from repro_torch.kernels.rwkv6_scan import (  # noqa: F401
-    wkv6, wkv6_batched, wkv6_decode)
+    wkv6, wkv6_batched, wkv6_batched_train, wkv6_decode)
 from repro_torch.kernels.spin_image import spin_image  # noqa: F401
 
 

@@ -23,6 +23,12 @@ until it divides T, down to 1 for a prime T).
 
 Both kernels may write the new state over the old one (``out_state``),
 which the serving path uses to keep its state preallocated.
+
+Training differentiates the chunked form through :class:`WKV6BatchedFn`:
+its forward is :func:`wkv6_batched` (the kernel on CUDA tensors, the
+plain version on CPU tensors), its backward :func:`wkv6_batched_backward`,
+PyTorch ops on both devices (the JAX package differentiates its jnp
+chunked form with XLA's autodiff and has no backward kernel).
 """
 
 from __future__ import annotations
@@ -365,6 +371,173 @@ def wkv6_batched(r, k, v, w, u, state, *, chunk: int = CHUNK,
         dispatch.count_launch(SITE_BATCHED)
     dispatch.record(SITE_BATCHED, "cuda")
     return y, dst
+
+
+# ----------------------------------------------------------------- gradient
+#: elements of the pairwise decay tensor (chunks, c, c, dk) that the
+#: backward forms at once: it takes the chunks in groups of about this
+#: size (256 MiB in float32)
+BWD_PAIR_ELEMS = 1 << 26
+
+
+def _affine_scan(d, b):
+    """x_i = d_i x_{i-1} + b_i along axis 1 from x_{-1} = 0, every i at
+    once: log2(n) rounds (Kogge-Stone), round k composing the maps 2^k
+    chunks apart.  d (BH, n, dk, 1) are products of decays, at most 1, so
+    nothing grows; b (BH, n, dk, dv)."""
+    off, n = 1, b.shape[1]
+    while off < n:
+        b = torch.cat([b[:, :off],
+                       torch.addcmul(b[:, off:], d[:, off:], b[:, :-off])], 1)
+        if 2 * off < n:
+            d = torch.cat([d[:, :off], d[:, off:] * d[:, :-off]], 1)
+        off *= 2
+    return b
+
+
+@torch.no_grad()
+def wkv6_batched_backward(r, k, v, w, u, state, dy, dstate=None, *,
+                          chunk: int = CHUNK):
+    """Gradients of :func:`wkv6_batched` from its inputs and the
+    gradients of its outputs, in PyTorch ops on either device:
+    (dr, dk, dv, dw, du) in the inputs' dtype and d state float32.
+    ``dy`` (BH, T, dv) and ``dstate`` (BH, dk, dv) may be None (no
+    gradient).
+
+    A chunk's y and end state are linear in its start state S0_c:
+    y_c = A_c v_c + r^_c S0_c and S_end_c = diag(d_c) S0_c + tail_c^T v_c,
+    with r^ = r e^{la_prev}, d = e^{la_last}, tail = k e^{la_last - la}.
+    So the backward (a) rebuilds the chunk-start states (the kernel keeps
+    none) and (b) carries the state gradient back, dS_end_c = dS0_{c+1}
+    and dS0_c = r^_c^T dy_c + diag(d_c) dS_end_c, each as a scan over the
+    chunks in log2(n) rounds of a few ops (:func:`_affine_scan`); (c)
+    differentiates every chunk's own terms at once, the chunks folded
+    into the batch, the pairwise decays of A formed as the forward forms
+    them (each at most 1) for groups of chunks of about
+    ``BWD_PAIR_ELEMS`` elements.  A ragged T is padded to whole chunks
+    with r = k = v = 0 and w = 1, which changes neither y nor the state.
+    Not differentiable itself (no double backward).
+    """
+    BH, T, dk = r.shape
+    dev = r.device
+    c = chunk
+    n = -(-T // c)
+    pad = n * c - T
+
+    def fold(x, fill=0.0):                  # (BH, T, d) -> (BH, n, c, d)
+        x = x.float()
+        if pad:
+            x = torch.nn.functional.pad(x, (0, 0, 0, pad), value=fill)
+        return x.reshape(BH, n, c, x.shape[-1])
+
+    rr, kk, vv, ww = fold(r), fold(k), fold(v), fold(w, 1.0)
+    gy = fold(dy) if dy is not None else torch.zeros_like(vv)
+    uf = u.float()
+    lw = torch.log(torch.clamp(ww, min=1e-38))
+    la = torch.cumsum(lw, dim=2)
+    la_prev = torch.nn.functional.pad(la[:, :, :-1], (0, 0, 1, 0))
+    la_last = la[:, :, -1]                                 # (BH, n, dk)
+    dec = torch.exp(la_last)
+    e_prev = torch.exp(la_prev)
+    rh = rr * e_prev
+    e_tail = torch.exp(la_last[:, :, None] - la)
+    tail = kk * e_tail
+
+    # (a) chunk-start states: the end states are an affine scan over the
+    # chunks, S_end_c = d_c S_end_{c-1} + tail_c^T v_c, from the input state
+    dec4 = dec[..., None]                                  # (BH, n, dk, 1)
+    kv = torch.matmul(tail.transpose(-1, -2), vv)          # (BH, n, dk, dv)
+    kv[:, 0].addcmul_(dec4[:, 0], state)
+    S0 = torch.cat([state[:, None], _affine_scan(dec4, kv)[:, :-1]], 1)
+    # (b) start-state gradients, a scan from the last chunk back
+    ry = torch.matmul(rh.transpose(-1, -2), gy)            # r^_c^T dy_c
+    if dstate is not None:
+        ry[:, -1].addcmul_(dec4[:, -1], dstate)
+    dS0 = _affine_scan(dec4.flip(1), ry.flip(1)).flip(1)
+    last = (torch.zeros_like(state) if dstate is None else dstate)[:, None]
+    dSe = torch.cat([dS0[:, 1:], last], 1)                 # dS_end_c
+
+    # (c) every chunk's own terms at once.  Log decay lw_u enters A[t, s]
+    # for s < u < t, tail_s for u > s, r^_t for u < t and d for every u:
+    # each gradient of lw sums those terms over exactly that range, so
+    # no term is added at one end of a range and taken off at the other
+    # (under strong decay that cancellation costs float32 its accuracy).
+    keep = torch.ones(c, c, dtype=torch.bool, device=dev).tril()
+    dA = torch.matmul(gy, vv.transpose(-1, -2)) * keep     # (BH, n, t, s)
+    dAd = torch.diagonal(dA, dim1=-2, dim2=-1)             # (BH, n, c)
+    A = torch.diag_embed((rr * uf[:, None, None] * kk).sum(-1))
+    dr_A = torch.empty_like(rr)
+    dk_A = torch.empty_like(kk)
+    glw = torch.zeros_like(lw)
+    below = keep.tril(-1)[..., None]                       # t > s
+    apart = keep.tril(-2)[..., None]                       # t > s + 1
+    group = max(1, BWD_PAIR_ELEMS // max(1, BH * c * c * dk))
+    for g0 in range(0, n, group):
+        g = slice(g0, g0 + group)
+        D = (la_prev[:, g, :, None] - la[:, g, None]).masked_fill_(
+            ~below, -torch.inf).exp_()                 # (BH, G, t, s, dk)
+        Dk = D * kk[:, g, None]                        # k_s decay_ts
+        A[:, g] += torch.matmul(Dk, rr[:, g, :, :, None])[..., 0]
+        dr_A[:, g] = torch.matmul(dA[:, g, :, None], Dk)[..., 0, :]
+        del Dk
+        P = D.mul_(rr[:, g, :, None]).mul_(dA[:, g, :, :, None])
+        dk_A[:, g] = P.sum(2)
+        # pair (t, s)'s share of each lw_u, s < u < t: summed over s <= u - 1
+        # (cumsum), then over t >= u + 1
+        P = P.mul_(kk[:, g, None]).cumsum(3).mul_(apart).sum(2)
+        glw[:, g, 1:] = P[:, :, :-1]
+        del D, P
+    drh = torch.matmul(gy, S0.transpose(-1, -2))           # (BH, n, c, dk)
+    dtail = torch.matmul(vv, dSe.transpose(-1, -2))        # (BH, n, c, dk)
+    gv = (torch.matmul(A.transpose(-1, -2), gy)
+          + torch.matmul(tail, dSe))
+    ddec = (S0 * dSe).sum(-1)                              # (BH, n, dk)
+    gd = dAd[..., None] * uf[:, None, None]
+    gr = dr_A + gd * kk + drh * e_prev
+    gk = dk_A + gd * rr + dtail * e_tail
+    gu = (dAd[..., None] * rr * kk).sum((1, 2))
+    tails = torch.cumsum(dtail * tail, 2)                  # over s <= u
+    glw[:, :, 1:] += tails[:, :, :-1]
+    cross = torch.flip(torch.cumsum(torch.flip(drh * rh, (2,)), 2), (2,))
+    glw[:, :, :-1] += cross[:, :, 1:]                      # over t >= u + 1
+    glw += (ddec * dec)[:, :, None]
+    gw = torch.where(ww >= 1e-38, glw / ww, 0.0)
+
+    def unfold(x, like):                    # (BH, n, c, d) -> (BH, T, d)
+        return x.reshape(BH, n * c, -1)[:, :T].to(like.dtype)
+
+    return (unfold(gr, r), unfold(gk, k), unfold(gv, v), unfold(gw, w),
+            gu.to(u.dtype), dS0[:, 0])
+
+
+class WKV6BatchedFn(torch.autograd.Function):
+    """Differentiable :func:`wkv6_batched` -> (y, final state): the
+    forward is the kernel on CUDA tensors and the plain version on CPU
+    tensors, and never writes its input state; the backward is
+    :func:`wkv6_batched_backward` from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state, chunk: int):
+        ctx.set_materialize_grads(False)
+        y, new = wkv6_batched(r, k, v, w, u, state, chunk=chunk)
+        ctx.save_for_backward(r, k, v, w, u, state)
+        ctx.chunk = chunk
+        return y, new
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        r, k, v, w, u, state = ctx.saved_tensors
+        *grads, ds = wkv6_batched_backward(r, k, v, w, u, state, dy, dstate,
+                                           chunk=ctx.chunk)
+        return (*grads, ds if ctx.needs_input_grad[5] else None, None)
+
+
+def wkv6_batched_train(r, k, v, w, u, state, *, chunk: int = CHUNK):
+    """:func:`wkv6_batched` under autograd (:class:`WKV6BatchedFn`):
+    the same shapes and results, gradients for r, k, v, w, u and the
+    state; the input state is never written."""
+    _check(r, k, v, w, u, state, steps=True)
+    return WKV6BatchedFn.apply(r, k, v, w, u, state, chunk)
 
 
 def wkv6(r, k, v, w, u, state, *, chunk: int = CHUNK):

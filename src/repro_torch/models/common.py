@@ -13,6 +13,8 @@ seeded ``torch.Generator`` on the target device (the two frameworks give
 different numbers from one seed; parity tests carry the reference's
 weights across with ``models.convert.params_from_reference``).
 ``constrain`` has no counterpart: nothing is sharded on one card.
+:func:`remat` is the counterpart of the reference's rematerialisation
+policies (``scan_layers``' ``jax.checkpoint``), applied per layer.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 Specs = Any   # nested dict / list structure with ParamSpec leaves
 
@@ -121,6 +125,19 @@ def tree_leaves(tree) -> list:
     if kids is None:
         return [tree]
     return [leaf for _, c in kids for leaf in tree_leaves(c)]
+
+
+def tree_named_leaves(tree, prefix: str = "") -> dict:
+    """{key path: tensor} of a tree, paths joined with ``/`` (the
+    checkpoint format's keys), in flatten order."""
+    kids = tree_children(tree)
+    if kids is None:
+        return {prefix: tree}
+    out = {}
+    for k, c in kids:
+        out.update(tree_named_leaves(c, f"{prefix}/{k}" if prefix
+                                     else str(k)))
+    return out
 
 
 def tree_map(fn, tree, *rest):
@@ -223,3 +240,44 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
         nll = nll * mask
         return nll.sum() / torch.clamp(mask.sum(), min=1.0)
     return nll.mean()
+
+
+# ------------------------------------------------------------------- remat
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_BATCHED_DOTS = (torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+#: the reference's policies (``jax.checkpoint_policies``) -> the matrix
+#: products whose outputs the backward keeps (None: keep everything).
+#: JAX's dots are ``dot_general``s; here a product without a batch
+#: dimension is ``mm``/``addmm`` and one with is ``bmm``/``baddbmm``
+REMAT_POLICIES = {
+    "nothing_saveable": (),
+    "dots_saveable": _DOTS + _BATCHED_DOTS,
+    "dots_with_no_batch_dims_saveable": _DOTS,
+    "everything_saveable": None,
+}
+
+
+def remat(fn, policy: str):
+    """``fn`` rematerialised under the reference's ``policy`` (a key of
+    ``REMAT_POLICIES``; another raises ``KeyError``, as the reference's
+    lookup does): under grad its activations are dropped after the
+    forward and recomputed in the backward, except the products the
+    policy keeps (``torch.utils.checkpoint``, non-reentrant; selective
+    for the dots policies).  Without grad, and under
+    ``everything_saveable``, ``fn`` runs as it is.  Values do not change:
+    the recomputation repeats the forward's ops, so ``fn`` must write
+    nothing in place that it reads."""
+    keep = REMAT_POLICIES[policy]
+    if keep is None:
+        return fn
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        if not keep:
+            return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=functools.partial(
+                              create_selective_checkpoint_contexts,
+                              list(keep)))
+    return wrapped

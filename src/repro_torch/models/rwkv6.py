@@ -14,6 +14,12 @@ The recurrence runs through ``kernels.wkv6_decode`` for one token and
 kernels on the card, their plain versions on the CPU.  The carried state
 (token shifts and per-head wkv state) IS the decode cache; it is
 preallocated and updated in place.
+
+Training (:meth:`RWKV6Model.loss`) has a forward of its own: it starts
+from a zero state, writes nothing in place, and runs the recurrence
+through ``kernels.wkv6_batched_train`` (the same kernel, with a
+gradient); every layer is rematerialised under ``nothing_saveable``, as
+the reference's forward always is.
 """
 
 from __future__ import annotations
@@ -25,7 +31,8 @@ from repro_torch.device import resolve
 from repro_torch.kernels import ops
 from repro_torch.kernels.rwkv6_scan import CHUNK, wkv6_plain
 from repro_torch.models.common import (ParamSpec, ParamTree, dense,
-                                       dense_specs, init_params, layer_norm)
+                                       dense_specs, init_params, layer_norm,
+                                       remat, softmax_xent)
 from repro_torch.models.config import ModelConfig
 
 LORA_RANK = 32
@@ -113,7 +120,9 @@ def _ddlerp(p, x, dx, x_mix, z: str):
 
 def time_mix(p, cfg: ModelConfig, x, prev_tok, wkv_state):
     """x: (B,S,D); prev_tok: (B,D); wkv_state: (B,H,dk,dv) float32,
-    updated in place.  Returns (out, last normed token, wkv_state)."""
+    updated in place, or None for training: the recurrence then starts
+    from a zero state under autograd (``wkv6_batched_train``) and writes
+    nothing in place.  Returns (out, last normed token, wkv_state)."""
     B, S, D = x.shape
     dh = cfg.rwkv_head_dim
     H = D // dh
@@ -131,8 +140,14 @@ def time_mix(p, cfg: ModelConfig, x, prev_tok, wkv_state):
         return t.reshape(B, S, H, dh).transpose(1, 2).reshape(B * H, S, dh)
 
     uu = p["u"].reshape(1, H, dh).expand(B, H, dh).reshape(B * H, dh)
-    ss = wkv_state.view(B * H, dh, dh)
-    if S == 1:
+    ss = None if wkv_state is None else wkv_state.view(B * H, dh, dh)
+    if ss is None:
+        zero = torch.zeros((B * H, dh, dh), dtype=torch.float32,
+                           device=x.device)
+        y, _ = ops.wkv6_batched_train(
+            *(fold(t).contiguous() for t in (r, k, v, w)), uu.contiguous(),
+            zero, chunk=CHUNK)
+    elif S == 1:
         y, _ = ops.wkv6_decode(*(fold(t)[:, 0].contiguous()
                                  for t in (r, k, v, w)),
                                uu.contiguous(), ss, out_state=ss)
@@ -206,10 +221,28 @@ class RWKV6Model:
 
     # -------------------------------------------------------- forward
     def loss(self, params, batch: dict):
-        raise NotImplementedError(
-            "rwkv6 training is not ported to repro_torch yet: the "
-            "wkv6_batched kernel has no gradient (ROADMAP.md queue A, "
-            "item A5)")
+        """batch: tokens (B, S), labels (B, S) and an optional mask, as
+        tensors on the params' device -> (loss, {}), the reference's:
+        the next-token cross-entropy of the training forward."""
+        logits = self._train_forward(params, batch["tokens"])
+        return softmax_xent(logits, batch["labels"], batch.get("mask")), {}
+
+    def _train_layer(self, lp, x: torch.Tensor) -> torch.Tensor:
+        zero = x.new_zeros((x.shape[0], x.shape[-1]))
+        x = x + time_mix(lp["att"], self.cfg, x, zero, None)[0]
+        return x + channel_mix(lp["ffn"], self.cfg, x, zero)[0]
+
+    def _train_forward(self, params, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens (B, S) -> logits (B, S, V) from a zero state, nothing
+        written in place, each layer rematerialised under
+        ``nothing_saveable`` (the reference's ``jax.checkpoint``)."""
+        x = F.embedding(tokens, params["embed"])
+        x = layer_norm(x, params["ln_in"], params["ln_in_b"])
+        layer = remat(self._train_layer, "nothing_saveable")
+        for lp in params["layers"]:
+            x = layer(lp, x)
+        x = layer_norm(x, params["ln_out"], params["ln_out_b"])
+        return x @ params["head"]
 
     def forward(self, params, tokens: torch.Tensor, state=None, *,
                 last_only: bool = False):

@@ -4,11 +4,12 @@ qwen3-4b (qk-norm), qwen2-72b (QKV bias), deepseek-coder-33b (GQA).
 The dense half of ``repro.models.transformer``.  The reference scans a
 stacked layer axis; here the layers are a list (``params["dense_layers"]``)
 walked in Python, and decode caches are preallocated per layer and
-written in place.  The training loss keeps every activation for the
-backward: the reference's ``jax.checkpoint`` rematerialisation changes
-memory and not values and is not ported.  MLA, MoE (with its auxiliary
-loss), multi-token prediction and the vlm family are not ported yet:
-ROADMAP.md queue A, item A6.
+written in place.  Under grad each layer of the forward is
+rematerialised under ``cfg.remat_policy``, as the reference's
+``jax.checkpoint`` over its layer scan does (``models.common.remat``):
+it changes memory, not values.  MLA, MoE (with its auxiliary loss),
+multi-token prediction and the vlm family are not ported yet: ROADMAP.md
+queue A, item A6.
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ import torch.nn.functional as F
 from repro_torch.device import resolve
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (ParamSpec, ParamTree, init_params,
-                                       layer_norm, rms_norm, softmax_xent)
+                                       layer_norm, remat, rms_norm,
+                                       softmax_xent)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.moe import ffn_apply, ffn_specs
 
@@ -88,19 +90,26 @@ class TransformerModel:
         return h + ffn_apply(lp["ffn"], apply_norm(lp["ln2"], cfg, h),
                              cfg.act)
 
+    def _layer(self, lp, x: torch.Tensor,
+                positions: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        xn = apply_norm(lp["ln1"], cfg, x)
+        x = x + attn.gqa_forward(lp["attn"], cfg, xn, positions,
+                                 window=cfg.sliding_window)
+        return self._ffn(lp, x)
+
     def forward(self, params, tokens: torch.Tensor, *,
                 last_only: bool = False):
         """tokens (B,S) -> (logits, aux, final hidden).  last_only=True:
-        logits of the final position only."""
+        logits of the final position only.  Under grad each layer is
+        rematerialised under ``cfg.remat_policy``."""
         cfg = self.cfg
         B, S = tokens.shape
         x = F.embedding(tokens, params["embed"])
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
+        layer = remat(self._layer, cfg.remat_policy)
         for lp in params["dense_layers"]:
-            xn = apply_norm(lp["ln1"], cfg, x)
-            x = x + attn.gqa_forward(lp["attn"], cfg, xn, positions,
-                                     window=cfg.sliding_window)
-            x = self._ffn(lp, x)
+            x = layer(lp, x, positions)
         x = apply_norm(params["final_norm"], cfg, x)
         if last_only:
             x = x[:, -1:, :]

@@ -19,7 +19,11 @@ autograd through the plain version) within 1e-5 (float32) and 2**-6
 (as the TPU's matrix unit did), the plain version keeps it float32.
 The batched simulator (``core/devicesim``, batched PyTorch ops) on the
 card against the same call on the CPU: t_par within 1e-9, every flag and
-integer field identical.
+integer field identical.  ``WKV6BatchedFn``'s gradients (the backward in
+PyTorch ops) against autograd through the plain version within 1e-4
+(float32) and 2**-6 (bfloat16) of their largest magnitude; rwkv6 training
+on the card against the CPU as olmo's; checkpoints of CUDA tensors bit
+for bit.
 """
 
 import numpy as np
@@ -303,6 +307,86 @@ def test_wkv6_kernels_at_other_head_dims_and_alignments(cuda, kernel, dk,
     assert torch.equal(y3, y) and torch.equal(state, s)
 
 
+def _wkv_grads(fn, ins, dy, ds):
+    leaves = [t.detach().clone().requires_grad_() for t in ins]
+    y, s = fn(*leaves)
+    return torch.autograd.grad((y.float() * dy).sum() + (s * ds).sum(),
+                               leaves)
+
+
+# WKV6BatchedFn on the card: the training shape (BH = 32) at a shorter T,
+# a ragged T in both dtypes, and strong decay; the kernel's forward and
+# the backward's ops against autograd through the plain version (1e-4 of
+# each gradient's largest magnitude in float32, 2**-6 in bfloat16)
+@pytest.mark.parametrize("BH,T,dtype,w", [
+    (32, 512, torch.bfloat16, None), (32, 200, torch.float32, None),
+    (32, 200, torch.bfloat16, None), (32, 100, torch.float32, 0.01),
+    (32, 100, torch.bfloat16, 0.01)])
+def test_wkv6_batched_grads_equal_plain_autograd(cuda, BH, T, dtype, w):
+    gen = torch.Generator().manual_seed(T)
+    ins = _wkv(cuda, BH, T, 64, dtype, gen, w=w)
+    dy = torch.randn((BH, T, 64), generator=gen).to(cuda)
+    ds = torch.randn((BH, 64, 64), generator=gen).to(cuda)
+    before = dispatch.launches("wkv6_batched")
+    y, s = kw.wkv6_batched_train(*ins)
+    torch.cuda.synchronize()
+    assert dispatch.launches("wkv6_batched") == before + 1
+    _close_scaled(y, kw.wkv6_batched_plain(*ins)[0], 1e-4)
+    got = _wkv_grads(kw.wkv6_batched_train, ins, dy, ds)
+    want = _wkv_grads(kw.wkv6_batched_plain, ins, dy, ds)
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -6
+    for g, x, ref in zip(got, ins, want):
+        assert g.dtype == x.dtype and torch.isfinite(g).all()
+        _close_scaled(g.float(), ref.float(), tol)
+
+
+def test_rwkv6_training_step_on_the_card_equals_cpu(cuda):
+    """rwkv6-smoke (float32): a loss and its gradients on the card run
+    wkv6_batched twice a layer (the forward and its recomputation) and
+    match the same step on the CPU."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.data import as_tensors, batch_for_step
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.runtime.executor import value_and_grad
+    cfg = get_smoke("rwkv6-1.6b").replace(dtype="float32")
+    model = build_model(cfg)
+    params = model.init(0, device=cuda)
+    batch = batch_for_step(cfg, 0, 2, 70)
+    fn = lambda p, b: model.loss(p, b)[0]  # noqa: E731
+    before = dispatch.launches("wkv6_batched")
+    loss, grads = value_and_grad(fn, params, as_tensors(batch, cuda))
+    torch.cuda.synchronize()
+    assert dispatch.launches("wkv6_batched") == before + 2 * cfg.n_layers
+    assert dispatch.status("wkv6_batched")["path"] == "cuda"
+    closs, cgrads = value_and_grad(fn, tree_map(torch.Tensor.cpu, params),
+                                   as_tensors(batch, "cpu"))
+    assert abs(float(loss) - float(closs)) <= 1e-5 * abs(float(closs))
+    for g, w in zip(tree_leaves(grads), tree_leaves(cgrads)):
+        _close_scaled(g.cpu(), w, 1e-4)
+
+
+def test_checkpoint_round_trip_of_cuda_tensors(cuda, tmp_path):
+    """Leaves on the card are saved from host copies and restored onto
+    the card or the CPU, bit for bit."""
+    from repro_torch.checkpoint import (CheckpointManager,
+                                        load_checkpoint)
+    tree = {"w": torch.randn(3, 5, device=cuda).to(torch.bfloat16),
+            "m": [torch.randn(7, device=cuda),
+                  torch.tensor(3, dtype=torch.int32, device=cuda)]}
+    mgr = CheckpointManager(tmp_path, interval=1)
+    mgr.maybe_save(1, tree)
+    tree["m"][0].zero_()                     # a later step, in place
+    got, step = mgr.restore_latest(tree)
+    assert step == 1 and got["w"].device.type == "cuda"
+    assert torch.equal(got["w"], tree["w"])
+    assert not torch.equal(got["m"][0], tree["m"][0])
+    on_cpu, _ = load_checkpoint(mgr.latest(), tree, device="cpu")
+    assert on_cpu["w"].device.type == "cpu"
+    assert torch.equal(on_cpu["w"], tree["w"].cpu())
+    assert torch.equal(on_cpu["m"][1], tree["m"][1].cpu())
+
+
 ATTN_CASES = [  # (B, S, H, KV, D, Dv, causal)
     (1, 300, 16, 16, 128, 128, True), (2, 100, 8, 2, 64, 64, True),
     (2, 129, 4, 4, 64, 64, False), (1, 77, 4, 1, 192, 128, True),
@@ -394,8 +478,10 @@ def test_flash_attention_duplicates_are_bit_identical(cuda):
 
 
 def test_training_path_launches_flash_attention(cuda):
-    """A loss and its gradients on the card go through the kernel, and
-    match the same step on the CPU (float32 smoke config)."""
+    """A loss and its gradients on the card go through the kernel, twice
+    a layer (every layer is rematerialised: its forward runs again in the
+    backward), and match the same step on the CPU (float32 smoke
+    config)."""
     from repro_torch.configs import get_smoke
     from repro_torch.data import as_tensors, batch_for_step
     from repro_torch.models import build_model
@@ -409,7 +495,7 @@ def test_training_path_launches_flash_attention(cuda):
     before = dispatch.launches("flash_attention")
     loss, grads = value_and_grad(fn, params, as_tensors(batch, cuda))
     torch.cuda.synchronize()
-    assert dispatch.launches("flash_attention") == before + cfg.n_layers
+    assert dispatch.launches("flash_attention") == before + 2 * cfg.n_layers
     closs, cgrads = value_and_grad(fn, tree_map(torch.Tensor.cpu, params),
                                    as_tensors(batch, "cpu"))
     assert abs(float(loss) - float(closs)) <= 1e-5 * abs(float(closs))
@@ -419,7 +505,8 @@ def test_training_path_launches_flash_attention(cuda):
 
 def test_bf16_training_path_launches_the_wgmma_variant(cuda):
     """In bfloat16 at head dim 64, every layer's attention of a loss and
-    its gradients runs the wgmma variant."""
+    its gradients runs the wgmma variant (twice a layer: the forward and
+    its recomputation)."""
     from repro_torch.configs import get_smoke
     from repro_torch.data import as_tensors, batch_for_step
     from repro_torch.models import build_model
@@ -435,7 +522,7 @@ def test_bf16_training_path_launches_the_wgmma_variant(cuda):
         batch_for_step(cfg, 0, 2, 200), cuda))
     torch.cuda.synchronize()
     after = dispatch.variant_launches("flash_attention").get("wgmma", 0)
-    assert after == before + cfg.n_layers
+    assert after == before + 2 * cfg.n_layers
     assert torch.isfinite(torch.as_tensor(float(loss)))
     assert all(bool(torch.isfinite(g).all()) for g in tree_leaves(grads))
 

@@ -366,7 +366,7 @@ def test_spec_and_process_mode():
 
 
 # --------------------------------------------------------------- launcher
-def test_train_cli_survives_a_fail_stop(capsys):
+def test_train_cli_survives_a_fail_stop(capsys, tmp_path):
     losses = ttrain.main(["--arch", "olmo-1b", "--smoke", "--steps", "3",
                           "--global-batch", "8", "--seq-len", "16",
                           "--fail", "1:1,2", "--device", "cpu"])
@@ -378,7 +378,11 @@ def test_train_cli_survives_a_fail_stop(capsys):
         ttrain.main(["--arch", "olmo-1b", "--smoke", "--steps", "2",
                      "--global-batch", "8", "--seq-len", "16", "--no-rdlb",
                      "--fail", "0:1", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="A7"):
-        ttrain.main(["--smoke", "--ckpt-dir", "x", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="A7"):
-        ttrain.main(["--smoke", "--ckpt-interval", "1", "--device", "cpu"])
+    # checkpoints are taken: --ckpt-dir and --ckpt-interval are accepted
+    losses = ttrain.main(["--smoke", "--steps", "2", "--global-batch", "8",
+                          "--seq-len", "16", "--ckpt-dir",
+                          str(tmp_path / "ck"), "--ckpt-interval", "1",
+                          "--device", "cpu"])
+    assert len(losses) == 2
+    assert sorted(p.name for p in (tmp_path / "ck").iterdir()) == [
+        "step_00000001", "step_00000002"]
