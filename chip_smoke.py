@@ -60,8 +60,9 @@ Phases, each fatal when it fails:
      for bit, and a few tiles and spin images must equal the plain
      version computed on the CPU.  One failure-free run of each app is
      then traced: its kernel's device ms summed over the run;
-  4. drive the serving path for olmo-1b and rwkv6-1.6b at full width in
-     bfloat16 with seeded random weights: threaded rDLB (SS, P=4) over
+  4. drive the serving path for olmo-1b and rwkv6-1.6b at full width and
+     half depth (8 and 12 layers, ``EARLIER_DEPTH``) in bfloat16 with
+     seeded random weights: threaded rDLB (SS, P=4) over
      16 requests of prompt lengths 37, 64 and 1000, 16 new tokens each,
      worker 1 fail-stopping after 2 requests.  Launch counts are set to 0
      just before each run and read just after: flash_decode must have
@@ -82,7 +83,7 @@ Phases, each fatal when it fails:
      head dims 64 and 256 shapes, and the gradients through
      FlashAttentionFn against autograd through the plain version, then
      timed like the others, with SDPA as its library call; rDLB training
-     of olmo-1b at full width in bfloat16 (global batch 8 x 2048 tokens,
+     of olmo-1b at full width and half depth in bfloat16 (global batch 8 x 2048 tokens,
      8 tasks, P = 4 threads, FAC, adamw, exact accumulation, 3 steps),
      once failure-free and once with worker 1 fail-stopping during step
      1: the parameters after every step must be equal bit for bit, the
@@ -90,7 +91,7 @@ Phases, each fatal when it fails:
      every launch of a step in its wgmma variant; a float32 copy cut to 2
      layers gives loss and gradients through the kernel within a stated
      tolerance of the plain path's, both on the card.  Then the same for
-     rwkv6-1.6b at full width and depth (8 x 4,096 tokens, the
+     rwkv6-1.6b at full width and half depth (8 x 4,096 tokens, the
      reference's train_4k cell), whose wkv6_batched must have launched
      on its training path (twice a layer: every layer is rematerialised,
      as every olmo-1b layer is under its ``remat_policy``); step seconds,
@@ -99,7 +100,26 @@ Phases, each fatal when it fails:
      --fail 2:1 --ckpt-dir <tmp> --ckpt-interval 1``, both archs): the
      hung step restores the last checkpoint and the run finishes with the
      losses of a failure-free run;
-  6. the batched simulator (``core/devicesim``, no kernel: batched
+  6. the other model families at full width in bfloat16 with seeded
+     weights: deepseek-v2-lite-16b (MLA + 64 routed experts, top-6; full
+     depth) and hymba-1.5b (16 of 32 layers, ``FAMILY_DEPTH``) through
+     phase 4's serving drive (fail-stop tokens equal
+     a failure-free run's bit for bit, at least one duplicate; hymba's
+     run must launch flash_decode and flash_attention), each with its
+     peak memory, ms per decode step at B = 1 beside the bytes of
+     weights a step reads, and one 1000-token ``model.prefill``; a
+     float32 copy of deepseek cut to 2 layers (dense, then MoE) gives the
+     CPU's greedy tokens and last logits within a stated tolerance, its
+     MLA forward through flash_attention; hymba's (global, then windowed)
+     the plain versions' tokens; paligemma-3b and whisper-tiny serve a
+     few requests (``FEW_PROMPTS``), flash_decode launching at D = 256
+     (8 heads over one) and D = 64; both attention kernels held and
+     timed at every cache and prefill shape these serving drives launch
+     them at (each prompt's last decode step, with its slot mask),
+     beside their bounds and SDPA; and all ten smoke configs in
+     float32, card against CPU: logits, three decode steps, a loss and
+     its gradients (aux and MTP included);
+  7. the batched simulator (``core/devicesim``, no kernel: batched
      float64 PyTorch ops) at the reference's benchmark sizes:
      ``benchmarks/fig_scale.py``'s device sweep point (P = 1024, N =
      131,072 unit tasks of 0.01 s, h = 1e-6, B = 1024 elements cycling
@@ -117,7 +137,7 @@ Phases, each fatal when it fails:
      and off: the same decisions, predictions within 1e-7, and at least
      one forecast batch on the card (counts set to 0 just before, read
      just after);
-  7. print one JSON line with the simulator's numbers (``{"devicesim":
+  8. print one JSON line with the simulator's numbers (``{"devicesim":
      ...}``), one with each kernel's launches, error, times and bound,
      then the result line.
 
@@ -164,6 +184,10 @@ CHAIN_CYCLES = 12
 # Serving (phase 4): olmo-1b carries flash_decode, rwkv6-1.6b the two
 # wkv6 kernels.  Prompt lengths cycle over SERVE_PROMPTS.
 SERVE_ARCHS = ("olmo-1b", "rwkv6-1.6b")
+# Phases 4 and 5 run these two at full width and half depth (of 16 and
+# 24 layers), to keep the script near 600 s with phase 6; the float32
+# check copies keep their 2 layers.
+EARLIER_DEPTH = {"olmo-1b": 8, "rwkv6-1.6b": 12}
 SERVE_PROMPTS = (37, 64, 1000)
 SERVE_REQUESTS = 16
 SERVE_NEW = 16
@@ -247,9 +271,13 @@ def trace_ms(fn, kernel: str, reps: int) -> float | None:
     return None
 
 
-def device_events(prof) -> list:
-    """The profiler's per-kernel averages that ran on the card."""
-    return [e for e in prof.key_averages() if e.count and
+def device_events(prof, averages=None) -> list:
+    """The profiler's per-kernel averages that ran on the card, from
+    ``averages`` (``prof.key_averages()``, which takes seconds to build
+    on a long trace) when the caller has them."""
+    if averages is None:
+        averages = prof.key_averages()
+    return [e for e in averages if e.count and
             str(getattr(e, "device_type", "")).endswith("CUDA")]
 
 
@@ -771,31 +799,12 @@ def compare_decode_kernels(dev) -> dict:
           f"per row,ms={short}")
     # the serving path's own shape: one request a group (B = 1), its H
     # query rows against the cache each served prompt reaches at its last
-    # step (L = 53, 80, 1016), held, timed and beside SDPA
-    shapes = []
-    for L1 in (p + SERVE_NEW for p in SERVE_PROMPTS):
-        q1 = torch.randn((1, H, D), generator=gen).to(dev, torch.bfloat16)
-        k1, v1 = (torch.randn((1, L1, H, D), generator=gen).to(
-            dev, torch.bfloat16) for _ in range(2))
-        ok1 = torch.ones(L1, dtype=torch.bool, device=dev)
-        err = max(err, check(
-            "flash_decode_gqa", f"cache=(1;{L1};{H};{D})", torch.bfloat16,
-            kf.flash_decode_gqa(q1, k1, v1, ok1),
-            kf.flash_decode_gqa_plain(q1, k1, v1, ok1)))
-        b1, by1 = bound_ms(2 * (q1.numel() + k1.numel() + v1.numel()
-                                + H * D) + L1,
-                           flash_decode_ops(H, L1, D, D))
-        ms1 = graph_ms(lambda: kf.flash_decode_gqa(q1, k1, v1, ok1), 100)
-        qs1 = q1.reshape(H, 1, D)
-        ks1, vs1 = (x.transpose(1, 2).reshape(H, L1, D) for x in (k1, v1))
-        lib1 = call_ms(lambda: sdpa(qs1, ks1, vs1, attn_mask=ok1[None, :]),
-                       100)
-        shapes.append(dict(shape=f"cache (1,{L1},{H},{D}) bf16, {H} query "
-                                 f"rows, all slots valid", ms=ms1,
-                           bound_ms=b1, bound_by=by1, library_ms=lib1))
-        print(f"flash_decode,timed B=1 L={L1},cluster={kf.decode_splits(L1)}"
-              f" CTAs per row,ms={ms1},bound_ms={b1} ({by1}),"
-              f"sdpa_ms={lib1}")
+    # step (L = 53, 80, 1016; every slot valid but the last, which the
+    # last new token never fills), held, timed and beside SDPA
+    shapes = [decode_shape(dev, f"olmo-1b, {p}-token prompt", H, H, D,
+                           served_valid(p + SERVE_NEW, p), gen)
+              for p in SERVE_PROMPTS]
+    err = max([err] + [r["max_abs_err"] for r in shapes])
     rows["flash_decode"].update(max_abs_err=err, shapes=shapes)
 
     rows.update(compare_wkv6_kernels(dev))
@@ -1024,14 +1033,16 @@ def compare_wkv6_grads(dev) -> dict:
 
 
 # ------------------------------------------------------------ phase 4
-def serve_requests(vocab: int):
+def serve_requests(vocab: int, n: int = SERVE_REQUESTS,
+                   prompts=SERVE_PROMPTS):
+    """n requests, their lengths cycling over ``prompts``, seeded
+    tokens."""
     import numpy as np
     from repro_torch.runtime import Request
     rng = np.random.default_rng(0)
     return [Request(i, rng.integers(
-        0, vocab, size=SERVE_PROMPTS[i % len(SERVE_PROMPTS)]).astype(
-            np.int32), max_new_tokens=SERVE_NEW)
-        for i in range(SERVE_REQUESTS)]
+        0, vocab, size=prompts[i % len(prompts)]).astype(np.int32),
+        max_new_tokens=SERVE_NEW) for i in range(n)]
 
 
 def run_serving(model, params, *, failing: bool):
@@ -1148,9 +1159,10 @@ def decode_throughput(model, params) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         gen(params, prompts, PROFILED_NEW)
         torch.cuda.synchronize()
-    kernels = device_events(prof)
+    averages = prof.key_averages()
+    kernels = device_events(prof, averages)
     busy_us = sum(device_us(e) for e in kernels)
-    host = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total,
+    host = sorted(averages, key=lambda e: e.self_cpu_time_total,
                   reverse=True)[:5]
     return dict(B=B, S=S, new=new, wall_s=times[new],
                 prefill_s=times[1], tok_s=B * new / times[new],
@@ -1196,37 +1208,34 @@ SERVE_SITES = {"olmo-1b": ("flash_decode", "flash_attention"),
                "rwkv6-1.6b": ("wkv6_decode", "wkv6_batched")}
 
 
-def drive_serving(dev, arch: str) -> dict:
-    """Phase 4 for one arch; returns the kernel launches of its fail-stop
-    run and prints its numbers."""
+def serve_drive(dev, cfg, sites) -> tuple:
+    """``cfg`` at its width in its dtype with seeded weights through the
+    serving drive: a fail-stop run (launch counts set to 0 just before,
+    read just after; each of ``sites`` must have launched on the card,
+    and at least one duplicate issued), then a failure-free run whose
+    tokens the fail-stop run's must equal bit for bit.  Returns (model,
+    params, launches of the fail-stop run)."""
     import numpy as np
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.kernels import dispatch
     from repro_torch.models import build_model
-    cfg = get_config(arch)
+    arch = cfg.name
     model = build_model(cfg)
     t0 = time.perf_counter()
     params = model.init(0, device=dev)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
-    print(f"serve,{arch},params={n_params},{cfg.dtype},"
-          f"init_s={time.perf_counter() - t0:.3f}")
+    print(f"serve,{arch},layers={cfg.n_layers},params={n_params},"
+          f"{cfg.dtype},init_s={time.perf_counter() - t0:.3f}")
     dispatch.reset_launches()
     reqs, st, wall = run_serving(model, params, failing=True)
     launches = dispatch.launches()
-    status = dispatch.status()
     print(f"rdlb,serve,{arch},requests={len(reqs)},"
           f"n_duplicates={st.n_duplicates},wasted={st.wasted_requests},"
           f"by_worker={st.by_worker},wall_s={wall:.4f},"
           f"tokens={len(reqs) * SERVE_NEW}")
     print(f"launches on the {arch} serving path: {launches}")
-    for site in SERVE_SITES[arch]:
-        if launches.get(site, 0) <= 0:
-            fail(f"kernel {site} was not launched on the {arch} "
-                 f"serving path")
-        if status.get(site, {}).get("path") != "cuda":
-            fail(f"dispatch status of {site} is {status.get(site)}")
+    check_sites(arch, launches, sites)
     if st.n_duplicates < 1:
         fail(f"{arch}: the fail-stop run issued no rDLB duplicate")
     calm, _, calm_wall = run_serving(model, params, failing=False)
@@ -1237,6 +1246,28 @@ def drive_serving(dev, arch: str) -> dict:
              f"failure-free run")
     print(f"rdlb,serve,{arch}: fail-stop tokens equal the failure-free "
           f"run's bit for bit (failure-free wall_s={calm_wall:.4f})")
+    return model, params, launches
+
+
+def check_sites(arch: str, launches: dict, sites) -> None:
+    """Each of ``sites`` launched on ``arch``'s path, on the card."""
+    from repro_torch.kernels import dispatch
+    status = dispatch.status()
+    for site in sites:
+        if launches.get(site, 0) <= 0:
+            fail(f"kernel {site} was not launched on the {arch} serving "
+                 f"path")
+        if status.get(site, {}).get("path") != "cuda":
+            fail(f"dispatch status of {site} is {status.get(site)}")
+
+
+def drive_serving(dev, arch: str) -> dict:
+    """Phase 4 for one arch; returns the kernel launches of its fail-stop
+    run and prints its numbers."""
+    import torch
+    from repro_torch.configs import get_config
+    cfg = get_config(arch).replace(n_layers=EARLIER_DEPTH[arch])
+    model, params, launches = serve_drive(dev, cfg, SERVE_SITES[arch])
     tp = decode_throughput(model, params)
     print(f"decode,{arch},B={tp['B']},S={tp['S']},new={tp['new']},"
           f"wall_s={tp['wall_s']:.4f},prefill_s={tp['prefill_s']:.4f},"
@@ -1569,11 +1600,12 @@ def drive_training(dev, arch: str) -> int:
     from repro_torch.kernels import dispatch
     from repro_torch.models import build_model
     seq, site = TRAIN_RUNS[arch]
-    cfg = get_config(arch)
+    cfg = get_config(arch).replace(n_layers=EARLIER_DEPTH[arch])
     model = build_model(cfg)
     params = model.init(0, device=dev)
     n_params = sum(p.numel() for p in params.parameters())
-    print(f"train,{arch},params={n_params},{cfg.dtype},"
+    print(f"train,{arch},layers={cfg.n_layers},params={n_params},"
+          f"{cfg.dtype},"
           f"global_batch={TRAIN_BATCH}x{seq},tasks={TRAIN_TASKS},"
           f"workers={TRAIN_WORKERS},technique=FAC,optimizer=adamw,"
           f"steps={TRAIN_STEPS},remat=each layer")
@@ -1725,6 +1757,495 @@ def restart_on_the_card() -> None:
 
 
 # ------------------------------------------------------------ phase 6
+# The other model families at full width in bfloat16 with seeded weights.
+# deepseek-v2-lite-16b (MLA + 64 routed experts, top-6) and hymba-1.5b go
+# through phase 4's serving drive (16 requests, prompts 37/64/1000, 16 new
+# tokens, worker 1 fail-stopping after 2); paligemma-3b and whisper-tiny
+# serve FEW_REQUESTS requests of FEW_PROMPTS through the same executor.
+# The kernels each run must launch (deepseek's serving path has none: MLA
+# decodes and prefills in the absorbed form, as the reference does, and
+# its experts are batched products).
+FAMILY_ARCHS = ("deepseek-v2-lite-16b", "hymba-1.5b")
+# deepseek runs at full depth (27 layers, 31.4 GB: the point is that one
+# card holds it whole); hymba at 16 of its 32 layers (its global layers 0
+# and 15 beside 14 windowed ones), to keep the script near 600 s: its
+# serving drive launches about 3,700 kernels a token from 4 threads.
+FAMILY_DEPTH = {"hymba-1.5b": 16}
+FEW_ARCHS = ("paligemma-3b", "whisper-tiny")
+FEW_REQUESTS = 4
+# whisper has no prefill: it walks a prompt through decode_step a token a
+# step, which at 1000 tokens (twice, with a duplicate) took 44-64 s of
+# the script on an H100 80GB HBM3 at 700 W, so it serves the two short
+# prompts.
+FEW_PROMPTS = {"paligemma-3b": SERVE_PROMPTS,
+               "whisper-tiny": SERVE_PROMPTS[:2]}
+FAMILY_SITES = {"deepseek-v2-lite-16b": (),
+                "hymba-1.5b": ("flash_decode", "flash_attention"),
+                "paligemma-3b": ("flash_decode", "flash_attention"),
+                "whisper-tiny": ("flash_decode",)}
+# ms per decode step at B = 1: FusedGenerator on one DECODE_PROMPT-token
+# prompt, (DECODE_NEW + 1 tokens - 1 token) / DECODE_NEW steps.
+DECODE_PROMPT, DECODE_NEW = 64, 16
+# deepseek's float32 2-layer copy (layer 0 dense, layer 1 MoE) on the card
+# against the CPU: the same greedy tokens, and the last logits of the
+# forward (its MLA through flash_attention's fp32 variant at D = 192 on
+# the card) and of the prefill within CPU_LOGIT_TOL = (atol, rtol): the
+# card's and the CPU's float32 products sum 2,048- to 10,944-long dot
+# products in other orders.
+CPU_LOGIT_TOL = (1e-3, 1e-4)
+# The ten smoke configs in float32, card against CPU (SMOKE_TOL): logits
+# 1e-4 + 1e-5 of their size, the loss 1e-5 of it, gradients 1e-4 of each
+# leaf's largest magnitude (as tests/test_torch_cuda.py).
+SMOKE_TOL = {"logits": (1e-4, 1e-5), "loss": 1e-5, "grads": 1e-4}
+
+
+def weight_bytes(params) -> int:
+    """Bytes of the parameters a decode step reads: every leaf once,
+    except the token embedding (one row)."""
+    from repro_torch.models.common import tree_named_leaves
+    return sum((t.shape[-1] if path == "embed" else t.numel())
+               * t.element_size()
+               for path, t in tree_named_leaves(params).items())
+
+
+def decode_step_ms(model, params) -> dict:
+    """Milliseconds per decode step at B = 1 (see DECODE_NEW), the better
+    of two timings; then one torch.profiler trace of a call generating
+    PROFILED_NEW tokens: kernels per token position, the device's busy
+    share of the call and its top device kernels."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.runtime.serve_executor import FusedGenerator
+    gen = FusedGenerator(model)
+    prompt = np.random.default_rng(4).integers(
+        0, model.cfg.vocab_size, size=(1, DECODE_PROMPT)).astype(np.int32)
+    gen(params, prompt, 2)
+    walls = {}
+    for n in (1, DECODE_NEW + 1, 1, DECODE_NEW + 1, PROFILED_NEW):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen(params, prompt, n)
+        walls[n] = min(walls.get(n, 1e9), time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        gen(params, prompt, PROFILED_NEW)
+        torch.cuda.synchronize()
+    kernels = device_events(prof)
+    busy_us = sum(device_us(e) for e in kernels)
+    top = sorted(kernels, key=device_us, reverse=True)[:5]
+    return dict(ms=(walls[DECODE_NEW + 1] - walls[1]) / DECODE_NEW * 1e3,
+                kernels_per_position=sum(e.count for e in kernels)
+                / PROFILED_NEW,
+                busy_share=busy_us / 1e6 / walls[PROFILED_NEW],
+                top=[(e.key[:48], e.count, round(device_us(e) / 1e3, 3))
+                     for e in top])
+
+
+def drive_family(dev, arch: str) -> dict:
+    """Phase 6 for one of FAMILY_ARCHS: the serving drive through a
+    fail-stop, peak memory, a decode step at B = 1 beside its bound, and
+    one 1000-token prefill.  Returns the launches of the fail-stop run."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    cfg = cfg.replace(n_layers=FAMILY_DEPTH.get(arch, cfg.n_layers))
+    torch.cuda.reset_peak_memory_stats()
+    model, params, launches = serve_drive(dev, cfg, FAMILY_SITES[arch])
+    step = decode_step_ms(model, params)
+    ms = step["ms"]
+    n_bytes = weight_bytes(params)
+    b, _ = bound_ms(n_bytes, 0.0)
+    extra = ""
+    if cfg.moe:
+        n_moe = cfg.n_layers - cfg.n_dense_layers
+        e_bytes = (n_moe * cfg.n_routed_experts * 3 * cfg.d_model
+                   * cfg.d_expert * 2)
+        extra = (f",routed experts alone={e_bytes / 1e9:.2f} GB -> "
+                 f"{bound_ms(e_bytes, 0.0)[0]:.3f} ms")
+    print(f"decode,{arch},B=1,S={DECODE_PROMPT},ms_per_step={ms:.3f},"
+          f"bound: weights read a step={n_bytes / 1e9:.2f} GB at "
+          f"{PEAK_BYTES / 1e12} TB/s -> {b:.3f} ms{extra}")
+    print(f"decode,{arch},profiled B=1 new={PROFILED_NEW}: kernels per "
+          f"token position={step['kernels_per_position']:.1f},device busy "
+          f"share={step['busy_share']:.3f},top device kernels (name, calls, "
+          f"ms)={step['top']}")
+    walls = time_prefill(model, params)
+    print(f"prefill,{arch},B=1,T={PREFILL_T},{cfg.dtype}: wall_s of "
+          f"{len(walls)} model.prefill calls after a warm-up={walls}")
+    print(f"memory,{arch},peak_allocated_gb="
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def drive_few(dev, arch: str) -> dict:
+    """Serve FEW_REQUESTS requests (prompts cycling over FEW_PROMPTS,
+    SERVE_NEW new tokens) of ``arch`` at full width through the threaded
+    executor; returns their launches."""
+    import gc
+    import torch
+    from repro_torch import api
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import build_model
+    from repro_torch.runtime import RDLBServeExecutor
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    params = model.init(0, device=dev)
+    reqs = serve_requests(cfg.vocab_size, FEW_REQUESTS, FEW_PROMPTS[arch])
+    ex = RDLBServeExecutor(model, params, spec=api.serve_spec(
+        technique="SS", n_workers=4, threaded=True))
+    dispatch.reset_launches()
+    t0 = time.perf_counter()
+    st = ex.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dispatch.launches()
+    ok = all(r.output is not None and r.output.shape == (SERVE_NEW,)
+             and ((r.output >= 0) & (r.output < cfg.vocab_size)).all()
+             for r in reqs)
+    print(f"serve,{arch},requests={len(reqs)},prompts="
+          f"{[len(r.prompt) for r in reqs]},hung={st.hung},"
+          f"wall_s={wall:.4f},head_dim={cfg.head_dim},"
+          f"group={cfg.n_heads // cfg.n_kv_heads},launches={launches}")
+    if st.hung or not ok:
+        fail(f"{arch}: serving returned malformed or missing outputs")
+    check_sites(arch, launches, FAMILY_SITES[arch])
+    del model, params, ex
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_against_cpu(dev, arch: str) -> None:
+    """A float32 copy of ``arch`` cut to 2 layers (deepseek: layer 0
+    dense, layer 1 MoE), full width, on the card and on the CPU: the same
+    greedy tokens for one short prompt, and the last logits of the
+    forward and of the prefill within CPU_LOGIT_TOL; the card's forward
+    launches flash_attention once a layer."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_map
+    from repro_torch.runtime.serve_executor import FusedGenerator
+    cfg = get_config(arch).replace(n_layers=2, dtype="float32")
+    model = build_model(cfg)
+    params = model.init(1, device=dev)
+    host = tree_map(lambda t: t.cpu(), params)
+    prompt = np.random.default_rng(6).integers(
+        0, cfg.vocab_size, size=(1, SERVE_PROMPTS[0])).astype(np.int32)
+    gen = FusedGenerator(model)
+    toks = [gen(p, prompt, SERVE_NEW) for p in (params, host)]
+    tokens = torch.from_numpy(prompt)
+    with torch.inference_mode():
+        before = dispatch.launches("flash_attention")
+        fwd = [model.forward(p, tokens.to(d))[0][:, -1].float().cpu()
+               for p, d in ((params, dev), (host, "cpu"))]
+        n_attn = dispatch.launches("flash_attention") - before
+        pre = [model.prefill(p, model.init_cache(1, tokens.shape[1],
+                                                 device=d),
+                             tokens.to(d))[0][:, -1].float().cpu()
+               for p, d in ((params, dev), (host, "cpu"))]
+    atol, rtol = CPU_LOGIT_TOL
+    errs = []
+    for label, (a, b) in (("forward", fwd), ("prefill", pre)):
+        e = float((a - b).abs().max())
+        errs.append(e)
+        if not bool(((a - b).abs() <= atol + rtol * b.abs()).all()):
+            fail(f"{arch} float32 2 layers: {label} logits on the card "
+                 f"differ from the CPU's by up to {e}")
+    same = int((toks[0] == toks[1]).sum())
+    print(f"check,{arch},float32 2 layers (layer 0 dense, layer 1 MoE),"
+          f"card vs CPU: tokens equal {same}/{toks[0].size},"
+          f"forward max_abs_err={errs[0]},prefill max_abs_err={errs[1]},"
+          f"tolerance={atol}+{rtol}*|cpu|,flash_attention launches in the "
+          f"card's forward={n_attn}")
+    if same != toks[0].size:
+        fail(f"{arch} float32 2 layers: greedy tokens on the card differ "
+             f"from the CPU's")
+    if n_attn != cfg.n_layers:
+        fail(f"{arch}: the MLA forward launched flash_attention {n_attn} "
+             f"times, not once a layer")
+    del model, params, host
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# The kernels each smoke config's forward and decode launch on the card,
+# by family (the others': flash_attention and flash_decode); MLA decodes
+# in its absorbed form, and the vlm forward's prefix-LM mask takes the
+# dense path.
+SMOKE_SITES = {"rwkv": ("wkv6_batched", "wkv6_decode"),
+               "moe": ("flash_attention",), "vlm": ("flash_decode",)}
+
+
+def smoke_gaps(dev, arch: str) -> dict:
+    """``arch``'s smoke config in float32 on the card against the CPU:
+    forward logits, three greedy decode steps, one loss and its gradients
+    (aux and MTP included).  Returns the gaps (logits absolute, loss and
+    gradients relative), the SMOKE_SITES kernels the card's calls did not
+    launch, and ``ok``: every gap within SMOKE_TOL and nothing missing.
+    tests/test_torch_cuda.py holds each config to it."""
+    import torch
+    from repro_torch.configs import get_smoke, smoke_batch
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import build_model, forward_logits
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.runtime.executor import value_and_grad
+    cfg = get_smoke(arch).replace(dtype="float32")
+    model = build_model(cfg)
+
+    def run(p, b, dev):
+        with torch.inference_mode():
+            outs = [forward_logits(model, p, b)]
+            cache = model.init_cache(2, 20, device=dev)
+            if cfg.family == "encdec":
+                cache = model.prefill_cross(p, cache, b["frames"])
+            tok = b["tokens"][:, :1]
+            for pos in range(3):
+                lg, cache = model.decode_step(p, cache, tok, pos)
+                outs.append(lg)
+                tok = torch.argmax(lg[:, -1:], dim=-1)
+        loss, grads = value_and_grad(lambda q, bb: model.loss(q, bb)[0], p,
+                                     b)
+        return [o.float().cpu() for o in outs], float(loss), [
+            g.float().cpu() for g in tree_leaves(grads)]
+
+    params = model.init(0, device="cpu")
+    batch = smoke_batch(cfg, batch=2, seq=16, device="cpu")
+    before = dispatch.launches()
+    card = run(tree_map(lambda t: t.to(dev), params),
+               {k: v.to(dev) for k, v in batch.items()}, dev)
+    torch.cuda.synchronize()
+    after = dispatch.launches()
+    cpu = run(params, batch, "cpu")
+    atol, rtol = SMOKE_TOL["logits"]
+    gaps = dict(
+        logits=max(float((a - b).abs().max())
+                   for a, b in zip(card[0], cpu[0])),
+        loss=abs(card[1] - cpu[1]) / abs(cpu[1]),
+        grads=max(float((a - b).abs().max())
+                  / max(float(b.abs().max()), 1e-30)
+                  for a, b in zip(card[2], cpu[2])),
+        missing=[site for site in SMOKE_SITES.get(
+            cfg.family, ("flash_attention", "flash_decode"))
+            if after.get(site, 0) <= before.get(site, 0)])
+    gaps["ok"] = (all(bool(((a - b).abs() <= atol + rtol * b.abs()).all())
+                      for a, b in zip(card[0], cpu[0]))
+                  and gaps["loss"] <= SMOKE_TOL["loss"]
+                  and gaps["grads"] <= SMOKE_TOL["grads"]
+                  and not gaps["missing"])
+    return gaps
+
+
+def check_smoke_configs(dev) -> None:
+    """All ten smoke configs on the card against the CPU (smoke_gaps)."""
+    from repro_torch.configs import ARCH_IDS
+    for arch in ARCH_IDS:
+        g = smoke_gaps(dev, arch)
+        print(f"check,smoke,{arch},card vs CPU: logits+3 decode steps "
+              f"max_abs_err={g['logits']},loss rel err={g['loss']},grads "
+              f"max rel err={g['grads']},kernels not launched="
+              f"{g['missing']},tolerances={SMOKE_TOL}")
+        if not g["ok"]:
+            fail(f"{arch} smoke config: the card's logits, loss or "
+                 f"gradients differ from the CPU's beyond {SMOKE_TOL}, or "
+                 f"kernels {g['missing']} did not launch")
+
+
+def attention_shape(dev, label: str, S: int, H: int, KV: int, D: int,
+                    Dv: int, want: str, gen, dt=None) -> dict:
+    """flash_attention at one causal shape of this phase's paths (bf16
+    unless ``dt`` says otherwise), held to its plain version (phase 2's
+    tolerance for the dtype) and timed beside its bound and SDPA (K/V
+    repeated to H heads)."""
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import flash_attention as kf
+    dt = dt or torch.bfloat16
+    q = torch.randn((1, S, H, D), generator=gen).to(dev, dt)
+    k = torch.randn((1, S, KV, D), generator=gen).to(dev, dt)
+    v = torch.randn((1, S, KV, Dv), generator=gen).to(dev, dt)
+    out, _ = kf.flash_attention_forward(q, k, v, causal=True)
+    variant = dispatch.status("flash_attention").get("variant")
+    pout, _ = kf.flash_attention_forward_plain(q, k, v, causal=True)
+    d = (out.float() - pout.float()).abs()
+    if dt == torch.float32:
+        tol, peak = 1e-5, PEAK_FP32
+    else:
+        tol = 1e-4 + 2.0 ** -7 * pout.float().abs() + kf.bf16_p_bound(
+            q, k, v, causal=True)
+        peak = PEAK_BF16
+    e = float(d.max())
+    if variant != want or not bool((d <= tol).all()):
+        fail(f"flash_attention ({label}) ran {variant} (want {want}) or "
+             f"differs from its plain version by {e}")
+    size = q.element_size()
+    n_bytes = size * (q.numel() + k.numel() + v.numel() + H * S * Dv) \
+        + 4 * H * S
+    b, by = bound_ms(n_bytes, attention_ops(1, H, S, D, Dv, True),
+                     peak=peak)
+    ms = graph_ms(lambda: kf.flash_attention_forward(q, k, v, causal=True),
+                  20)
+    g = H // KV
+    qh, kh, vh = (t.transpose(1, 2) for t in (
+        q, k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = call_ms(lambda: sdpa(qh, kh, vh, is_causal=True), 20)
+    name = str(dt).replace("torch.", "")
+    row = dict(shape=f"{label}: q ({1},{S},{H},{D}), k ({1},{S},{KV},{D}), "
+                     f"v Dv={Dv} {name}, causal", variant=variant,
+               max_abs_err=e, ms=ms, bound_ms=b, bound_by=by, library_ms=lib)
+    print(f"flash_attention,{label},{name},variant={variant},max_abs_err="
+          f"{e},ms={ms},bound_ms={b} ({by}),sdpa_ms={lib}")
+    return row
+
+
+def served_valid(L: int, p: int, *, off: int = 0, window: int = 0):
+    """The slots of an L-slot cache valid at the last decode step of a
+    served request (a p-token prompt written from position ``off``, then
+    SERVE_NEW - 1 decode steps): the mask gqa_decode gives flash_decode
+    there, by its own slot rule (``pos % L``) and validity rule."""
+    import torch
+    last = off + p + SERVE_NEW - 2
+    pos = torch.arange(max(off, last - L + 1), last + 1)
+    cpos = torch.full((L,), -1, dtype=torch.int64)
+    cpos[pos % L] = pos
+    ok = (cpos >= 0) & (cpos <= last)
+    if window:
+        ok &= cpos > last - window
+    return ok
+
+
+def decode_shape(dev, label: str, H: int, KV: int, D: int, valid,
+                 gen) -> dict:
+    """flash_decode at one B = 1 row of a serving path (an L-slot cache,
+    ``valid`` its (L,) slot mask), held to its plain version (phase 2's
+    bf16 tolerance) and timed beside its bound and SDPA."""
+    import torch
+    from repro_torch.kernels import flash_attention as kf
+    dt = torch.bfloat16
+    L, n_valid = valid.numel(), int(valid.sum())
+    q = torch.randn((1, H, D), generator=gen).to(dev, dt)
+    k, v = (torch.randn((1, L, KV, D), generator=gen).to(dev, dt)
+            for _ in range(2))
+    ok = valid.to(dev)
+    got = kf.flash_decode_gqa(q, k, v, ok).float()
+    want = kf.flash_decode_gqa_plain(q, k, v, ok).float()
+    e = float((got - want).abs().max())
+    if not bool(((got - want).abs() <= 1e-4 + 2.0 ** -7 * want.abs()
+                 ).all()):
+        fail(f"flash_decode ({label}) differs from its plain version by {e}")
+    n_bytes = 2 * (q.numel() + 2 * KV * n_valid * D + H * D) + L
+    b, by = bound_ms(n_bytes, flash_decode_ops(H, n_valid, D, D))
+    ms = graph_ms(lambda: kf.flash_decode_gqa(q, k, v, ok), 100)
+    g = H // KV
+    ks, vs = (x.repeat_interleave(g, dim=2).transpose(1, 2)[0]
+              for x in (k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = call_ms(lambda: sdpa(q[0][:, None], ks, vs,
+                               attn_mask=ok[None, :]), 100)
+    row = dict(shape=f"{label}: cache (1,{L},{KV},{D}) bf16, {H} query "
+                     f"rows, {n_valid} slots valid", max_abs_err=e, ms=ms,
+               bound_ms=b, bound_by=by, library_ms=lib,
+               cluster=kf.decode_splits(L))
+    print(f"flash_decode,{label},B=1,L={L},valid={n_valid},"
+          f"cluster={kf.decode_splits(L)},max_abs_err={e},ms={ms},"
+          f"bound_ms={b} ({by}),sdpa_ms={lib}")
+    return row
+
+
+def family_kernel_shapes(dev, rows: dict) -> None:
+    """The two attention kernels at the shapes phase 6's serving drives
+    launch them at, for each prompt length they serve (SERVE_PROMPTS;
+    whisper FEW_PROMPTS):
+    flash_decode at each request's last step (B = 1) on hymba's windowed
+    and global caches (the prompt written after the meta offset),
+    paligemma's (D = 256, g = 8, the text after the patch slots) and
+    whisper's (D = 64); flash_attention at hymba's global-layer and
+    paligemma's prompt prefills.  And flash_attention at MLA's forward
+    (D = 192, Dv = 128): at the 2-layer check's prompt, which
+    check_against_cpu launches, and at the 1000-token prompt length
+    (model.forward and loss; deepseek's serving path launches no
+    kernel).  Added to the rows' ``shapes``."""
+    import torch
+    from repro_torch.configs import get_config
+    gen = torch.Generator().manual_seed(9)
+    hy, pg = get_config("hymba-1.5b"), get_config("paligemma-3b")
+    wh, ds = get_config("whisper-tiny"), get_config("deepseek-v2-lite-16b")
+    meta, win, patch = hy.n_meta_tokens, hy.sliding_window, pg.n_patch_tokens
+    dec = rows["flash_decode"].setdefault("shapes", [])
+    att = rows["flash_attention"].setdefault("shapes", [])
+    for p in SERVE_PROMPTS:
+        n = p + SERVE_NEW
+        dec += [
+            decode_shape(dev, f"hymba-1.5b windowed layer, {p}-token "
+                         f"prompt", hy.n_heads, hy.n_kv_heads, hy.head_dim,
+                         served_valid(min(win, n + meta), p, off=meta,
+                                      window=win), gen),
+            decode_shape(dev, f"hymba-1.5b global layer, {p}-token prompt",
+                         hy.n_heads, hy.n_kv_heads, hy.head_dim,
+                         served_valid(n + meta, p, off=meta), gen),
+            decode_shape(dev, f"paligemma-3b, {p}-token prompt",
+                         pg.n_heads, pg.n_kv_heads, pg.head_dim,
+                         served_valid(n + patch, p, off=patch), gen)]
+        if p in FEW_PROMPTS["whisper-tiny"]:
+            dec.append(decode_shape(dev, f"whisper-tiny, {p}-token prompt",
+                                    wh.n_heads, wh.n_kv_heads, wh.head_dim,
+                                    served_valid(n, p), gen))
+        att += [
+            attention_shape(dev, f"hymba-1.5b global-layer prefill, {p} "
+                            f"tokens", p, hy.n_heads, hy.n_kv_heads,
+                            hy.head_dim, hy.head_dim, "wgmma", gen),
+            attention_shape(dev, f"paligemma-3b prefill, {p} tokens", p,
+                            pg.n_heads, pg.n_kv_heads, pg.head_dim,
+                            pg.head_dim, "fp32", gen)]
+    mla = ds.nope_head_dim + ds.rope_head_dim
+    for S, dt, what in (
+            (SERVE_PROMPTS[0], torch.float32, "the 2-layer check's forward"),
+            (SERVE_PROMPTS[-1], torch.bfloat16,
+             "forward at the longest prompt, not launched in this run")):
+        att.append(attention_shape(dev, f"deepseek-v2-lite-16b MLA {what}",
+                                   S, ds.n_heads, ds.n_heads, mla,
+                                   ds.v_head_dim, "fp32", gen, dt))
+
+
+def drive_families(dev, rows: dict) -> None:
+    """Phase 6: the other model families (see FAMILY_ARCHS)."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    for site in ("flash_decode", "flash_attention"):
+        rows[site]["launches_families"] = {}
+    for arch in FAMILY_ARCHS:
+        launches = drive_family(dev, arch)
+        for site in FAMILY_SITES[arch]:
+            rows[site]["launches_families"][arch] = launches[site]
+        if arch == "hymba-1.5b":
+            same = check_plain_tokens(dev, arch)
+            print(f"check,{arch},float32 2 layers (layer 0 global, layer 1 "
+                  f"windowed): kernel tokens equal plain tokens {same}")
+        else:
+            check_against_cpu(dev, arch)
+    for arch in FEW_ARCHS:
+        launches = drive_few(dev, arch)
+        for site in FAMILY_SITES[arch]:
+            rows[site]["launches_families"][arch] = launches[site]
+    family_kernel_shapes(dev, rows)
+    check_smoke_configs(dev)
+    print(f"families,seconds={time.perf_counter() - t0:.1f}")
+
+
+# ------------------------------------------------------------ phase 7
 # The batched simulator (core/devicesim) at the reference's benchmark
 # sizes: benchmarks/fig_scale.py's device_sweep_point (B elements cycling
 # the four fixed-chunk techniques over P workers and N unit tasks of t
@@ -1796,9 +2317,10 @@ def profile_sim(label: str, fn, wall: float) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
-    kernels = device_events(prof)
+    averages = prof.key_averages()
+    kernels = device_events(prof, averages)
     busy = sum(device_us(e) for e in kernels) / 1e6
-    host = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total,
+    host = sorted(averages, key=lambda e: e.self_cpu_time_total,
                   reverse=True)[:5]
     out = dict(kernels=sum(e.count for e in kernels), device_busy_s=busy,
                busy_share=busy / wall,
@@ -2064,6 +2586,13 @@ def main() -> int:
              f"checkout of the repository")
     sys.path.insert(0, src)
     from repro_torch.kernels import _build
+    t_phase = time.perf_counter()
+
+    def phase_done(n: int) -> None:
+        nonlocal t_phase
+        now = time.perf_counter()
+        print(f"phase,{n},seconds={now - t_phase:.1f}", flush=True)
+        t_phase = now
 
     # phase 1: the card, then the build
     smi = subprocess.run(
@@ -2095,11 +2624,13 @@ def main() -> int:
              f"UTMALDG instructions: {sass}")
     dev = torch.device("cuda")
 
+    phase_done(1)
     # phase 2: kernels against their plain versions
     rows = compare_kernels(dev)
     rows.update(compare_decode_kernels(dev))
     rows.update(compare_attention_kernel(dev))
 
+    phase_done(2)
     # phase 3: rDLB end to end, with a real fail-stop
     run = drive_main_path(dev)
     mst, pst, launches = run["mst"], run["pst"], run["launches"]
@@ -2125,11 +2656,13 @@ def main() -> int:
         rows[site]["kernel_ms_per_run"] = profile_app_run(
             dev, app)["kernel_ms_per_run"]
 
+    phase_done(3)
     # phase 4: serving, each model's run with its own launch counts
     for arch in SERVE_ARCHS:
         for site, n in drive_serving(dev, arch).items():
             rows[site]["launches"] = n
 
+    phase_done(4)
     # phase 5: training, with its own launch counts
     rows["flash_attention"]["launches"] = drive_training(dev, TRAIN_ARCH)
     check_train_float32(dev, TRAIN_ARCH)
@@ -2138,13 +2671,19 @@ def main() -> int:
     check_train_float32(dev, "rwkv6-1.6b")
     restart_on_the_card()
 
-    # phase 6: the batched simulator and adaptive re-planning
+    phase_done(5)
+    # phase 6: the other model families, each run with its own counts
+    drive_families(dev, rows)
+    phase_done(6)
+
+    # phase 7: the batched simulator and adaptive re-planning
     t0 = time.perf_counter()
     sim = drive_devicesim(dev)
     sim["seconds"] = time.perf_counter() - t0
     sim["gpu"] = smi.stdout.strip()
+    phase_done(7)
 
-    # phase 7: report
+    # phase 8: report
     print(json.dumps({"devicesim": sim}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -2,15 +2,20 @@
 
 10 architectures x 4 shapes = 40 cells.  ``long_500k`` requires
 sub-quadratic attention => only rwkv6-1.6b and hymba-1.5b run it.
-A copy of ``repro.configs.registry`` without ``input_specs`` and
-``smoke_batch`` (ROADMAP.md queue A, item A7).
+A copy of ``repro.configs.registry`` with ``modality_inputs`` and
+``smoke_batch`` drawn by torch; ``input_specs`` and ``train_config`` are
+not copied yet (ROADMAP.md queue A, item A7).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import importlib
+from typing import Optional
 
+import torch
+
+from repro_torch.device import resolve
 from repro_torch.models.config import ModelConfig
 
 _MODULES = {
@@ -65,3 +70,36 @@ def applicable_shapes(cfg: ModelConfig) -> list[str]:
     if cfg.subquadratic:
         names.append("long_500k")
     return names
+
+
+# ------------------------------------------------------------- modality
+def modality_inputs(cfg: ModelConfig, batch: int, *,
+                    device="meta") -> dict:
+    """Frontend STUBS: precomputed patch / frame embeddings, float32,
+    as uninitialised tensors on ``device`` (default ``meta``: shapes and
+    dtypes only, no memory)."""
+    out = {}
+    if cfg.family == "vlm":
+        out["patches"] = torch.empty((batch, cfg.n_patch_tokens,
+                                      cfg.d_model), device=device)
+    if cfg.family == "encdec":
+        out["frames"] = torch.empty((batch, cfg.encoder_seq, cfg.d_model),
+                                    device=device)
+    return out
+
+
+def smoke_batch(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
+                batch: int = 2, seq: int = 16, *, device=None) -> dict:
+    """Concrete tiny batch for the per-arch smoke tests: tokens and their
+    next-token labels, plus standard-normal patches (vlm) or frames
+    (encdec), drawn from ``generator`` (one seeded with 0 when None) on
+    ``device`` (None: the card)."""
+    dev = resolve(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq + 1),
+                           generator=generator, device=dev)
+    out = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    for key, t in modality_inputs(cfg, batch).items():
+        out[key] = torch.randn(t.shape, generator=generator, device=dev)
+    return out

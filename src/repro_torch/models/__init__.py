@@ -1,3 +1,3 @@
-"""Models of the port: the dense transformer and RWKV-6 (serving)."""
+"""Models of the port: every family of ``registry.MODEL_FAMILIES``."""
 
-from repro_torch.models.registry import build_model  # noqa: F401
+from repro_torch.models.registry import build_model, forward_logits  # noqa: F401

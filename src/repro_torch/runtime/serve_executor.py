@@ -106,7 +106,8 @@ class FusedGenerator:
          S + max_new positions, and every step writes it in place (the
          reference donates its cache into a jitted ``lax.scan``);
       2. ``model.prefill`` fills it for the S prompt positions in one
-         full-sequence pass;
+         full-sequence pass (a model without ``prefill`` — whisper —
+         walks the prompt through ``decode_step`` instead);
       3. max_new - 1 steps of decode_step, the greedy argmax on the
          device, and the token fed straight back as the next input;
       4. one copy of the (B, max_new) tokens to the host.
@@ -129,7 +130,12 @@ class FusedGenerator:
         with torch.inference_mode():
             cache = model.init_cache(buf.shape[0], S + max_new, device=dev)
             tokens = torch.from_numpy(buf).to(dev)
-            logits, cache = model.prefill(params, cache, tokens)
+            if hasattr(model, "prefill"):
+                logits, cache = model.prefill(params, cache, tokens)
+            else:
+                for pos in range(S):
+                    logits, cache = model.decode_step(
+                        params, cache, tokens[:, pos:pos + 1], pos)
             out = torch.empty((buf.shape[0], max_new), dtype=torch.int32,
                               device=dev)
             tok = torch.argmax(logits[:, -1, :], dim=-1)

@@ -26,6 +26,9 @@ on the card against the CPU as olmo's; checkpoints of CUDA tensors bit
 for bit.
 """
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -590,3 +593,25 @@ def test_devicesim_monte_carlo_on_card_equals_cpu(cuda, rdlb):
     got = devicesim.simulate_many(lows, device=cuda, **kw)
     _same_batch(got, devicesim.simulate_many(lows, device="cpu", **kw))
     assert got.valid.any() and got.hung.any() != rdlb
+
+
+@pytest.mark.parametrize("arch", [
+    "deepseek-v3-671b", "deepseek-v2-lite-16b", "deepseek-coder-33b",
+    "qwen3-4b", "olmo-1b", "qwen2-72b", "paligemma-3b", "whisper-tiny",
+    "rwkv6-1.6b", "hymba-1.5b"])
+def test_smoke_config_on_the_card_equals_cpu(cuda, arch):
+    """Each smoke config in float32: forward logits, three decode steps
+    and one loss with its gradients (the routers' aux and deepseek-v3's
+    MTP loss included) on the card, through the kernels its family
+    launches, against the same calls on the CPU: logits within 1e-4 +
+    1e-5 of their size, the loss within 1e-5 of it, gradients within 1e-4
+    of each leaf's largest magnitude.  The check is ``chip_smoke.py``'s
+    own (``smoke_gaps``), which runs it for all ten configs."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    gaps = chip_smoke.smoke_gaps(cuda, arch)
+    assert chip_smoke.SMOKE_TOL == {"logits": (1e-4, 1e-5), "loss": 1e-5,
+                                    "grads": 1e-4}
+    assert gaps["ok"], gaps

@@ -118,26 +118,33 @@ def test_param_dtype_is_torch():
     ("deepseek-v3-671b", "moe"), ("paligemma-3b", "vlm"),
     ("whisper-tiny", "encdec"), ("hymba-1.5b", "hybrid")])
 def test_unported_families_name_their_roadmap_item(arch, family):
+    """The families that ROADMAP.md's item A6 listed as unported now
+    build, each as the reference's model class of the same name."""
     cfg = tconfigs.get_smoke(arch)
     assert cfg.family == family
-    with pytest.raises(NotImplementedError, match="A6"):
-        build_model(cfg)
+    model = build_model(cfg)
+    assert type(model).__name__ == type(jbuild(jget_smoke(arch))).__name__
 
 
 def test_unported_paths_raise():
-    """MLA and the chunked ``flash_attend`` of a windowed mask at
-    ``flash_threshold`` tokens raise; a plain causal mask at the threshold
-    runs, through the flash attention kernel's path."""
-    with pytest.raises(NotImplementedError, match="A6"):
-        build_model(ModelConfig(family="dense", mla=True))
+    """The paths that raised until item A6 was ported now run: MLA on a
+    dense-family config builds, and a windowed mask at ``flash_threshold``
+    tokens takes the chunked ``flash_attend``, whose logits equal the
+    dense ``_attend``'s (the same config at a threshold above S) within
+    float32 rounding; a plain causal mask at the threshold runs through
+    the flash attention kernel's path."""
+    assert build_model(ModelConfig(family="dense", mla=True)).cfg.mla
     cfg = ModelConfig(family="dense", n_layers=1, d_model=16, n_heads=2,
                       n_kv_heads=2, d_ff=32, vocab_size=32, dtype="float32",
                       flash_threshold=8, sliding_window=4)
     m = build_model(cfg)
     p = m.init(0, device="cpu")
-    tokens = torch.zeros((1, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="A6"):
-        m.forward(p, tokens)
+    tokens = torch.arange(8, dtype=torch.int32)[None] % 32
+    chunked, _, _ = m.forward(p, tokens)
+    dense_, _, _ = build_model(cfg.replace(flash_threshold=9)).forward(
+        p, tokens)
+    np.testing.assert_allclose(chunked.detach().numpy(),
+                               dense_.detach().numpy(), atol=1e-5)
     logits, _, _ = build_model(cfg.replace(sliding_window=0)).forward(
         p, tokens)
     assert logits.shape == (1, 8, 32) and bool(torch.isfinite(logits).all())
