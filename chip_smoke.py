@@ -126,7 +126,8 @@ Phases, each fatal when it fails:
      SS / STATIC / mFSC / FSC) with every element valid and each
      technique's t_par within rtol 1e-12, atol 1e-9 of the scalar engine
      (cold and warm seconds, and the scalar engine's seconds a
-     simulation); one ``benchmarks/fig4_resilience.py`` Monte-Carlo cell
+     simulation; that call alone profiled); one
+     ``benchmarks/fig4_resilience.py`` Monte-Carlo cell
      per k in {1, 16, 31} (P = 32, N = 256, h = 1e-4, SS / mFSC / FSC,
      10,000 paired fail-stop draws each, 30,000 elements in one call):
      invalid elements re-run on the scalar engine and counted, 32 draws
@@ -137,7 +138,27 @@ Phases, each fatal when it fails:
      and off: the same decisions, predictions within 1e-7, and at least
      one forecast batch on the card (counts set to 0 just before, read
      just after);
-  8. print one JSON line with the simulator's numbers (``{"devicesim":
+  8. process mode (``repro_torch.cluster``): P = 4 worker processes,
+     each a spawned interpreter with its own CUDA context, the kernels
+     built once by this process before it spawns them; kills and
+     freezes are real signals.  Mandelbrot (FAC over the 64 tiles) with
+     3 children SIGKILLed mid-run, and PSIA (FAC over the 20,000 points)
+     with one, equal phase 3's image and spin images bit for bit, every
+     task committed exactly once; olmo-1b at full width and depth in
+     bfloat16 serves phase 4's 16 requests failure-free and through a
+     SIGKILL and a SIGSTOP, tokens equal across the two and a threaded
+     run; olmo-1b at 4 layers (``PROC_TRAIN_DEPTH``: a task's gradients
+     fit one 1 GiB frame) trains one step (8 x 2,048 tokens, 8 tasks)
+     failure-free and through a SIGKILL, parameters equal bit for bit
+     to each other and to a threaded step.  Every child that ran a task
+     reports its kernel path and launches (``cuda``, > 0 at the app's or
+     the model's sites; the ``launches_process`` entries of the kernel
+     rows); each run prints its wall seconds, seconds from spawn to
+     first assignment per child, duplicates, wasted tasks, survivors,
+     peak memory per child and of the card, payload bytes and chaos
+     events; afterwards no child is left and the card's memory is back
+     at its level before the phase;
+  9. print one JSON line with the simulator's numbers (``{"devicesim":
      ...}``), one with each kernel's launches, error, times and bound,
      then the result line.
 
@@ -2444,11 +2465,8 @@ def devicesim_monte_carlo(dev) -> list:
                     fail(f"devicesim MC k={k} {tech} draw {b % draws}: "
                          f"t_par {res.t_par[b]} against the scalar "
                          f"engine's {r.t_par}, or its counters differ")
-        prof = profile_sim(f"monte_carlo k={k}", lambda: devicesim
-                           .simulate_many(lows, device=dev, **kw), sec)
         cell = dict(k=k, elements=len(tech_of), seconds=sec,
-                    cpu_seconds=cpu_sec, kernels=prof["kernels"],
-                    busy_share=prof["busy_share"], invalid=len(bad),
+                    cpu_seconds=cpu_sec, invalid=len(bad),
                     hung=int(np.isinf(t_fail).sum()),
                     mean_t_par={tech: float(t_fail[tech_of == u].mean())
                                 for u, tech in enumerate(MC_TECHS)})
@@ -2510,6 +2528,386 @@ def drive_devicesim(dev) -> dict:
     return dict(fig_scale=devicesim_scale(dev),
                 monte_carlo=devicesim_monte_carlo(dev),
                 adaptive=devicesim_adaptive())
+
+
+# ------------------------------------------------------------ phase 8
+# Process mode (repro_torch.cluster): PROC_WORKERS worker processes, each
+# a spawned interpreter with a CUDA context of its own, the kernels built
+# once by the master before it spawns them.  Kills and freezes are real
+# signals: fail_after_tasks=1 SIGKILLs a worker at its next assignment
+# after one task, so it dies mid-run holding a chunk; hang_time SIGSTOPs
+# one.  Every worker sleeps PROC_SLEEP[app] a task (sleep_per_task, a
+# declared perturbation realised in the child), so each victim is at
+# work while its siblings still are.  olmo-1b serves at full depth;
+# it trains at PROC_TRAIN_DEPTH layers, where one task's gradients (bf16,
+# the parameters' size: 0.74 GB) fit the transport's 1 GiB frame.
+PROC_WORKERS = 4
+PROC_TIMEOUTS = dict(stall_timeout=60.0, wall_timeout=600.0)
+PROC_SLEEP = {"mandelbrot": 0.05, "psia": 1e-4, "serve": 0.5}
+PROC_TRAIN_DEPTH = 4
+PROC_HANG_AFTER = 2.0            # s after the slowest child's first task
+PROC_MEM_SLACK = 256 << 20       # bytes of card memory the phase may keep
+
+
+def proc_spec(technique: str, workers, name: str, n_tasks=None):
+    from repro_torch import api
+    return api.RunSpec(
+        scheduling=api.SchedulingSpec(technique=technique),
+        cluster=api.ClusterSpec(n_workers=PROC_WORKERS,
+                                workers=tuple(workers), name=name),
+        execution=api.ExecutionSpec(mode="process", h=0.0,
+                                    horizon=100000.0, **PROC_TIMEOUTS),
+        n_tasks=n_tasks, name=name)
+
+
+@contextlib.contextmanager
+def card_peak(out: dict):
+    """The card's peak use (total less the least free memory, sampled
+    every 20 ms, all processes) while the block runs, into
+    ``out["card_peak_GB"]``."""
+    import threading
+    import torch
+    free0, total = torch.cuda.mem_get_info()
+    least = [free0]
+    stop = threading.Event()
+
+    def sample():
+        while not stop.wait(0.02):
+            least[0] = min(least[0], torch.cuda.mem_get_info()[0])
+
+    th = threading.Thread(target=sample, daemon=True)
+    th.start()
+    try:
+        yield
+    finally:
+        stop.set()
+        th.join()
+        out["card_peak_GB"] = (total - least[0]) / 1e9
+
+
+def proc_report(label: str, sites, stats: dict, card: dict) -> dict:
+    """The last process-mode run's numbers, printed; fails unless at
+    least one child reported and every child that reported ran each of
+    ``sites`` through ``cuda`` with launches > 0.  Returns them with the
+    children's launches summed per site (``launches``)."""
+    from repro_torch import cluster
+    run = cluster.runs()[-1]
+    children, total = {}, {}
+    for wid, c in sorted(run["children"].items()):
+        rec = dict(pid=c["pid"],
+                   spawn_to_first_assign_s=c["spawn_to_first_assign_s"])
+        k = c["kernels"]
+        if k is not None:
+            for site in sites:
+                if (k["launches"].get(site, 0) <= 0 or k["status"].get(
+                        site, {}).get("path") != "cuda"):
+                    fail(f"process {label}: child {wid} (pid {c['pid']}) "
+                         f"reports {site} as {k['status'].get(site)} with "
+                         f"launches {k['launches']}")
+            for site, n in k["launches"].items():
+                total[site] = total.get(site, 0) + n
+            rec.update(launches=k["launches"],
+                       peak_GB=(k["peak_bytes"] or 0) / 1e9)
+        children[wid] = rec
+    if not total:
+        fail(f"process {label}: no child reported a kernel launch")
+    out = dict(stats, wall_s=run["wall_s"],
+               payload_bytes=run["payload_bytes"], **card,
+               chaos=[(round(e["t"], 3), e["wid"], e["action"])
+                      for e in run["chaos"]],
+               children=children)
+    print(f"process,{label},{json.dumps(out)}")
+    out["launches"] = total
+    return out
+
+
+def counting_backend(base):
+    """``base`` (a backend class) counting its commits per task id."""
+    class Counting(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.commits = {}
+
+        def commit(self, chunk, wid, payload, newly):
+            for t in newly:
+                self.commits[t] = self.commits.get(t, 0) + 1
+            super().commit(chunk, wid, payload, newly)
+    return Counting
+
+
+def check_exactly_once(label: str, st, backend, n: int, kills: int) -> dict:
+    kill_events = [e for e in st.chaos_events
+                   if e.action in ("kill", "kill_by_count")]
+    if st.hung or st.n_finished != n:
+        fail(f"process {label}: finished {st.n_finished}/{n} tasks")
+    if backend.commits != {t: 1 for t in range(n)}:
+        fail(f"process {label}: tasks not committed exactly once")
+    if len(kill_events) != kills or len(st.survivors) != PROC_WORKERS - kills:
+        fail(f"process {label}: {len(kill_events)} kills, survivors "
+             f"{st.survivors}; expected {kills} kills")
+    return dict(n_duplicates=st.n_duplicates, wasted=st.wasted_tasks,
+                survivors=st.survivors, kills=len(kill_events))
+
+
+def process_apps(img, spins) -> dict:
+    """Mandelbrot (FAC over its 64 tiles, P - 1 children SIGKILLed) and
+    PSIA (FAC over 20,000 points, one child SIGKILLed) in process mode;
+    the image and the spin images must equal phase 3's threaded results
+    bit for bit, every task committed exactly once.  Returns each app's
+    report."""
+    import functools
+
+    import numpy as np
+    from repro_torch import api, cluster
+    from repro_torch.apps import mandelbrot, psia
+    from repro_torch.core.engine import WorkerBackend
+    from repro_torch.runtime import FnBackend
+    out = {}
+    side, iters = mandelbrot.SIDE, mandelbrot.MAX_ITERS
+    n = mandelbrot.n_tiles(side, TILE)
+    sleep = PROC_SLEEP["mandelbrot"]
+    spec = proc_spec("FAC", [api.WorkerSpec(sleep_per_task=sleep)]
+                     + [api.WorkerSpec(sleep_per_task=sleep,
+                                       fail_after_tasks=1)]
+                     * (PROC_WORKERS - 1), "mandelbrot", n)
+    backend = counting_backend(FnBackend)(task_fn=functools.partial(
+        mandelbrot.compute_tile, side=side, tile=TILE, max_iters=iters,
+        device="cuda"))
+    card = {}
+    with card_peak(card):
+        st = api.execute(spec, backend)
+    stats = check_exactly_once("mandelbrot", st, backend, n,
+                               PROC_WORKERS - 1)
+    if not np.array_equal(mandelbrot.assemble(backend.results, side=side,
+                                              tile=TILE), img):
+        fail("process mandelbrot: the image differs from phase 3's")
+    out["mandelbrot"] = proc_report("mandelbrot", ["mandelbrot"], stats,
+                                    card)
+
+    class Spins(WorkerBackend):            # the master side: commits only
+        def __init__(self):
+            self.results = {}
+
+        def commit(self, chunk, wid, payload, newly):
+            for t in newly:
+                self.results[t] = payload[t]
+
+    n = psia.PAPER_N
+    sleep = PROC_SLEEP["psia"]
+    spec = proc_spec("FAC", [api.WorkerSpec(sleep_per_task=sleep,
+                                            fail_after_tasks=(
+                                                1 if w == 1 else None))
+                             for w in range(PROC_WORKERS)], "psia", n)
+    backend = counting_backend(Spins)()
+    runner = cluster.ChunkRunner(functools.partial(
+        psia.compute_tasks, n=n, cloud_n=psia.CLOUD, device="cuda"))
+    card = {}
+    with card_peak(card):
+        st = api.run(spec, api.build(spec, backend, factory=runner))
+    stats = check_exactly_once("psia", st, backend, n, 1)
+    if not np.array_equal(np.stack([backend.results[t] for t in range(n)]),
+                          spins):
+        fail("process psia: the spin images differ from phase 3's")
+    out["psia"] = proc_report("psia", ["spin_image"], stats, card)
+    print("process: mandelbrot and psia through SIGKILLs equal phase 3's "
+          "threaded results bit for bit, every task committed once")
+    return out
+
+
+def process_serving(dev) -> dict:
+    """olmo-1b at full width and depth, bf16, seeded weights: phase 4's
+    16 requests served threaded (P=4), then in process mode failure-free
+    and through a SIGKILL (replica 1, after its first request) and a
+    SIGSTOP (replica 2, PROC_HANG_AFTER s after the failure-free run's
+    slowest child took its first request).  Tokens must be equal across
+    the three.  Returns the kill/stop run's report."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.runtime import RDLBServeExecutor
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg)
+    params = model.init(0, device=dev)
+    threaded, _, wall = run_serving(model, params, failing=False)
+    print(f"process,serve,threaded,layers={cfg.n_layers},wall_s={wall:.4f}")
+    spec = proc_spec("SS", [api.WorkerSpec()] * PROC_WORKERS, "serve")
+
+    def serve(spec, **kw):
+        reqs = serve_requests(cfg.vocab_size)
+        ex = RDLBServeExecutor(model, params, spec=spec)
+        ex.slow = {w: PROC_SLEEP["serve"] for w in range(PROC_WORKERS)}
+        card = {}
+        with card_peak(card):
+            st = ex.serve(reqs, **kw)
+        if st.hung or any(r.output is None for r in reqs):
+            fail(f"process serving hung={st.hung} ({kw})")
+        return reqs, st, card
+
+    calm, st, card = serve(spec)
+    out = {"failure-free": proc_report(
+        "serve,failure-free", ("flash_decode",), dict(
+            n_duplicates=st.n_duplicates, wasted=st.wasted_requests,
+            by_worker=st.by_worker), card)}
+    start = max(c["spawn_to_first_assign_s"] or 0.0 for c in
+                out["failure-free"]["children"].values())
+    workers = [api.WorkerSpec()] * PROC_WORKERS
+    workers[2] = api.WorkerSpec(hang_time=start + PROC_HANG_AFTER)
+    spec = dataclasses.replace(spec, cluster=dataclasses.replace(
+        spec.cluster, workers=tuple(workers)))
+    hit, st, card = serve(spec, fail_at={1: 1})
+    rep = proc_report("serve,kill+stop", ("flash_decode",), dict(
+        n_duplicates=st.n_duplicates, wasted=st.wasted_requests,
+        by_worker=st.by_worker), card)
+    actions = {(w, a) for _, w, a in rep["chaos"]}
+    if not {(1, "kill_by_count"), (2, "stop")} <= actions:
+        fail(f"process serving: chaos {rep['chaos']}, need replica 1 "
+             f"killed and replica 2 stopped")
+    print(f"process,serve: replica 2 was stopped "
+          f"{'after' if 'launches' in rep['children'][2] else 'before'} "
+          f"its first request")
+    for name, other in (("failure-free process", calm),
+                        ("threaded", threaded)):
+        bad = [r.rid for r, c in zip(hit, other)
+               if not np.array_equal(r.output, c.output)]
+        if bad:
+            fail(f"process serving: requests {bad} differ from the "
+                 f"{name} run's")
+    print("process,serve: tokens through a SIGKILL and a SIGSTOP equal the "
+          "failure-free process run's and the threaded run's bit for bit")
+    del model, params
+    torch.cuda.empty_cache()
+    return {"kill+stop": rep, **out}
+
+
+def process_training(dev) -> dict:
+    """One step of olmo-1b at full width and PROC_TRAIN_DEPTH layers
+    (8 x 2048 tokens, 8 tasks, P=4, FAC, adamw, exact accumulation):
+    threaded, in process mode failure-free, and in process mode with
+    worker 1 SIGKILLed at its assignment after its first task.  The
+    process runs' parameters must be equal bit for bit; against the
+    threaded step they are compared and the largest gap printed (it
+    must be 0: the same per-task gradients, reduced in float32 in the
+    same order, on the host instead of the card)."""
+    import math
+
+    import torch
+    from repro_torch import api
+    from repro_torch.configs import get_config
+    from repro_torch.data import batch_for_step
+    from repro_torch.models import build_model
+    from repro_torch.runtime import RDLBTrainExecutor
+    cfg = get_config(TRAIN_ARCH).replace(n_layers=PROC_TRAIN_DEPTH)
+    model = build_model(cfg)
+    params = model.init(0, device=dev)
+    batch = batch_for_step(cfg, 0, TRAIN_BATCH, TRAIN_SEQ)
+    spec = proc_spec("FAC", [api.WorkerSpec()] * PROC_WORKERS, "train",
+                     TRAIN_TASKS)
+
+    def step(spec, fail_after=None):
+        ex = RDLBTrainExecutor(model, spec=spec, optimizer="adamw",
+                               lr=1e-4, exact_accumulation=True)
+        if fail_after is not None:
+            ex.workers[1].fail_after_tasks = fail_after
+        card = {}
+        with card_peak(card):
+            t0 = time.perf_counter()
+            res = ex.train_step(params, ex.opt.init(params), batch)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        if res.hung or not math.isfinite(res.loss):
+            fail(f"process training: hung={res.hung}, loss={res.loss}")
+        stats = dict(loss=res.loss, seconds=dt,
+                     n_duplicates=res.n_duplicates,
+                     wasted=res.wasted_tasks, survivors=res.survivors)
+        return params_on_host(res.params), stats, card
+
+    threaded, tstats, _ = step(spec.override("execution.mode", "threaded"))
+    print(f"process,train,threaded,layers={cfg.n_layers},"
+          f"{json.dumps(tstats)}")
+    calm, stats, card = step(spec)
+    out = {"failure-free": proc_report("train,failure-free",
+                                       ("flash_attention",), stats, card)}
+    hit, stats, card = step(spec, fail_after=1)
+    out["kill"] = proc_report("train,kill", ("flash_attention",), stats,
+                              card)
+    if 1 in stats["survivors"] or stats["n_duplicates"] < 1:
+        fail(f"process training: worker 1 not lost or no duplicate "
+             f"({stats})")
+    if any(not torch.equal(a, b) for a, b in zip(hit, calm)):
+        fail("process training: parameters after a SIGKILL differ from "
+             "the failure-free process step's")
+    gap = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(hit, threaded))
+    print(f"process,train: parameters through a SIGKILL equal the "
+          f"failure-free process step's bit for bit; largest gap to the "
+          f"threaded step {gap}")
+    if gap != 0.0:
+        fail(f"process training: parameters differ from the threaded "
+             f"step's by up to {gap}")
+    del model, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def card_level() -> int:
+    """Card memory held by no other process: free, plus what this
+    process's caching allocator holds (threaded runs in this process
+    keep cuBLAS workspaces there; empty_cache cannot return them)."""
+    import torch
+    torch.cuda.empty_cache()
+    return torch.cuda.mem_get_info()[0] + torch.cuda.memory_reserved()
+
+
+def no_children_left(level_before: int) -> None:
+    """No process of ours runs cluster code any more, and the card's
+    memory held by no other process (:func:`card_level`) is back within
+    PROC_MEM_SLACK of its level before the phase (polled for up to 10 s:
+    the driver frees a killed process's memory after it is reaped)."""
+    me = str(os.getpid())
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                ppid = f.read().rsplit(")", 1)[1].split()[1]
+            with open(f"/proc/{pid}/cmdline") as f:
+                cmd = f.read().replace("\0", " ")
+        except (FileNotFoundError, ProcessLookupError, IndexError):
+            continue
+        if ppid == me and "repro_torch.cluster" in cmd:
+            fail(f"process mode left a child behind: {pid} {cmd}")
+    deadline = time.monotonic() + 10.0
+    while True:
+        level = card_level()
+        if level >= level_before - PROC_MEM_SLACK:
+            break
+        if time.monotonic() > deadline:
+            fail(f"card memory after process mode: {level / 1e9:.3f} GB "
+                 f"free or cached here, {level_before / 1e9:.3f} GB before "
+                 f"the phase")
+        time.sleep(0.2)
+    print(f"process: no child left; card memory free or cached here "
+          f"{level / 1e9:.3f} GB (before the phase "
+          f"{level_before / 1e9:.3f} GB)")
+
+
+def drive_process(dev, img, spins) -> dict:
+    """Phase 8; returns the children's launches per kernel site."""
+    from repro_torch import cluster
+    level_before = card_level()
+    cluster.reset_runs()
+    apps = process_apps(img, spins)
+    serve = process_serving(dev)
+    train = process_training(dev)
+    no_children_left(level_before)
+    return {"mandelbrot": apps["mandelbrot"]["launches"]["mandelbrot"],
+            "spin_image": apps["psia"]["launches"]["spin_image"],
+            "flash_decode": serve["kill+stop"]["launches"]["flash_decode"],
+            "flash_attention": train["kill"]["launches"]["flash_attention"]}
 
 
 def ptxas_entries(log: str) -> list:
@@ -2683,7 +3081,13 @@ def main() -> int:
     sim["gpu"] = smi.stdout.strip()
     phase_done(7)
 
-    # phase 8: report
+    # phase 8: process mode, the children's launch counts (each child
+    # counts its own; the master's say nothing about them)
+    for site, n in drive_process(dev, run["img"], run["spins"]).items():
+        rows[site]["launches_process"] = n
+    phase_done(8)
+
+    # phase 9: report
     print(json.dumps({"devicesim": sim}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {

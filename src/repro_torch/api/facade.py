@@ -3,8 +3,9 @@
 Every driver funnels through :func:`build`:
 
   * ``repro_torch.core.simulator.simulate``/``run`` (timing-only backend),
-  * ``repro_torch.runtime.FnBackend`` runs (the apps' real tasks); the
-    training and serving executors come with their slices,
+  * ``repro_torch.runtime.RDLBTrainExecutor`` (microbatch gradients),
+  * ``repro_torch.runtime.RDLBServeExecutor`` (request decoding),
+  * ``repro_torch.runtime.FnBackend`` runs (the apps' real tasks),
   * the adaptive forecaster's candidate sweep (resumed remainders),
   * benchmarks and the ``python -m repro_torch`` CLI.
 
@@ -91,8 +92,10 @@ def build(spec: RunSpec, backend: engine.WorkerBackend, *,
     """RunSpec -> ready-to-run driver (with its queue and workers).
 
     ``mode="virtual"``/``"threaded"`` build a ``repro_torch.core.engine.Engine``;
-    ``mode="process"`` raises ``NotImplementedError`` until its module is
-    ported (ROADMAP.md queue A, item A8).
+    ``mode="process"`` builds a ``repro_torch.cluster.ClusterRun`` — real
+    OS worker processes around the same RobustQueue (duck-compatible:
+    ``queue``/``workers``/``run()``).  Construction never spawns
+    anything; processes live inside ``run()``.
 
     ``technique`` injects a prebuilt (e.g. pre-warmed) technique instead
     of constructing one from the spec; ``adaptive`` injects a live
@@ -100,8 +103,8 @@ def build(spec: RunSpec, backend: engine.WorkerBackend, *,
     the spec-built adaptive controller's forecast workload (None =
     unit-cost tasks); ``sim_device`` is the torch device of that
     controller's ``device_sweep`` forecasts (None = the card);
-    ``factory`` is the process-mode child-side runner, kept in the
-    signature for parity with ``repro.api.build``.
+    ``factory`` is the process-mode child-side runner (derived from
+    ``backend`` when omitted — ``repro_torch.cluster.factory_for_backend``).
     """
     N = n_tasks if n_tasks is not None else spec.n_tasks
     if N is None:
@@ -136,9 +139,15 @@ def build(spec: RunSpec, backend: engine.WorkerBackend, *,
         # stream through the hub but no rows are kept
         recorder = _trc.TraceRecorder(hub=hub, store=e.trace)
     if e.mode == "process":
-        raise NotImplementedError(
-            "mode='process' (repro.cluster) is not ported to repro_torch "
-            "yet: ROADMAP.md queue A, item A8")
+        if policy is not None:
+            raise ValueError(
+                "adaptive re-planning is not supported in process mode "
+                "yet (snapshot/hot-swap assume an in-process engine)")
+        from repro_torch import cluster                 # lazy: no cycle
+        return cluster.ClusterRun(
+            queue, spec, backend, factory=factory,
+            record_feedback=spec.scheduling.feedback,
+            trace=recorder)
     return engine.Engine(queue, spec.cluster.engine_workers(), backend,
                          h=e.h, horizon=e.horizon,
                          record_feedback=spec.scheduling.feedback,

@@ -2,5 +2,5 @@
 
 from repro_torch.configs.registry import (  # noqa: F401
     ARCH_IDS, SHAPES, Shape, applicable_shapes, get_config, get_smoke,
-    modality_inputs, smoke_batch,
+    input_specs, modality_inputs, smoke_batch, train_config,
 )

@@ -1,10 +1,11 @@
-"""Architecture registry + the assigned input-shape grid (data only).
+"""Architecture registry + the assigned input-shape grid.
 
 10 architectures x 4 shapes = 40 cells.  ``long_500k`` requires
 sub-quadratic attention => only rwkv6-1.6b and hymba-1.5b run it.
-A copy of ``repro.configs.registry`` with ``modality_inputs`` and
-``smoke_batch`` drawn by torch; ``input_specs`` and ``train_config`` are
-not copied yet (ROADMAP.md queue A, item A7).
+A copy of ``repro.configs.registry`` with ``smoke_batch`` drawn by
+torch.  ``input_specs`` returns tensors on the ``meta`` device (shapes
+and dtypes, no memory) where the reference returns ``ShapeDtypeStruct``
+stand-ins — consumed by the dry run (``repro_torch.launch.dryrun``).
 """
 
 from __future__ import annotations
@@ -103,3 +104,52 @@ def smoke_batch(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     for key, t in modality_inputs(cfg, batch).items():
         out[key] = torch.randn(t.shape, generator=generator, device=dev)
     return out
+
+
+# ------------------------------------------------------------- input specs
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: Shape, model=None) -> dict:
+    """``meta`` stand-ins for every input of the step: tokens (and labels
+    to train), the modality stubs, and to decode one new token against
+    a cache of ``seq_len`` entries built by ``model.init_cache`` on
+    ``meta`` (the reference's ``jax.eval_shape``), with its position."""
+    B, S = shape.global_batch, shape.seq_len
+    if shape.kind == "train":
+        specs = {"tokens": _meta((B, S), torch.int32),
+                 "labels": _meta((B, S), torch.int32)}
+        specs.update(modality_inputs(cfg, B))
+        return specs
+    if shape.kind == "prefill":
+        specs = {"tokens": _meta((B, S), torch.int32)}
+        specs.update(modality_inputs(cfg, B))
+        return specs
+    if model is None:
+        from repro_torch.models import build_model
+        model = build_model(cfg)
+    return {"cache": model.init_cache(B, S, device="meta"),
+            "tokens": _meta((B, 1), torch.int32),
+            "pos": _meta((), torch.int32)}
+
+
+# --------------------------------------------------------- train settings
+_TRAIN = {
+    # arch: (num_microbatches for train_4k, optimizer)
+    "deepseek-v3-671b": (32, "adafactor"),
+    "deepseek-v2-lite-16b": (16, "adafactor"),
+    "deepseek-coder-33b": (8, "adafactor"),
+    "qwen3-4b": (4, "adamw"),
+    "olmo-1b": (2, "adamw"),
+    "qwen2-72b": (8, "adafactor"),
+    "paligemma-3b": (4, "adamw"),
+    "whisper-tiny": (1, "adamw"),
+    "rwkv6-1.6b": (4, "adamw"),
+    "hymba-1.5b": (4, "adamw"),
+}
+
+
+def train_config(arch: str) -> dict:
+    ub, opt = _TRAIN[arch]
+    return {"num_microbatches": ub, "optimizer": opt}

@@ -6,13 +6,19 @@ and the library is loaded with ``ctypes``.  The sources have a plain C
 interface and include no PyTorch header, so a build takes seconds.  The
 build happens at first use, never at import; it is redone when a source
 or a header it includes (``csrc/*.cuh``) is newer than the library.
+The stale check and the compile hold an exclusive ``fcntl`` lock on
+``build/kernels/.lock``, so processes started together on a stale tree
+(the spawned workers of ``repro_torch.cluster``) build it once: the
+first compiles, the others wait and then load what it built.
 Each C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises on a non-zero code.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import os
 import pathlib
 import shutil
@@ -94,15 +100,28 @@ def _compile() -> pathlib.Path:
     return lib
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """Exclusive lock across processes on ``BUILD_DIR/.lock``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def library(*, rebuild: bool = False) -> ctypes.CDLL:
     """The loaded kernel library, built first if needed, or always with
-    ``rebuild`` while it is not loaded yet (thread-safe)."""
+    ``rebuild`` while it is not loaded yet (thread- and process-safe)."""
     global _lib
     with _lock:
         if _lib is None:
             lib = BUILD_DIR / LIB_NAME
-            if rebuild or _stale(lib):
-                lib = _compile()
+            with _build_lock():
+                if rebuild or _stale(lib):
+                    lib = _compile()
             _lib = ctypes.CDLL(str(lib))
         return _lib
 

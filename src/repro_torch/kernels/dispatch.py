@@ -3,12 +3,13 @@ hand-written kernels were launched.
 
 Every kernel wrapper records its path here on each call: ``"cuda"`` when
 it launched its kernel on a CUDA tensor, ``"torch"`` when it ran the
-plain PyTorch version on a CPU tensor.  There is no fallback path: on a
-CUDA tensor a wrapper launches its kernel or raises.  ``status()`` lets
-benchmarks and tests assert on what actually executed, and the launch
-counts let a run show that its main path went through the kernels.  A
-site with more than one kernel (flash_attention: "wgmma" and "fp32")
-also records which variant ran, and counts launches per variant.
+plain PyTorch version on a CPU (or ``meta``) tensor.  There is no
+fallback path: on a CUDA tensor a wrapper launches its kernel or raises.
+``status()`` lets benchmarks and tests assert on what actually executed,
+and the launch counts let a run show that its main path went through
+the kernels.  A site with more than one kernel (flash_attention:
+"wgmma" and "fp32") also records which variant ran, and counts launches
+per variant.
 """
 
 from __future__ import annotations
@@ -16,6 +17,9 @@ from __future__ import annotations
 import threading
 
 PATHS = ("cuda", "torch")
+#: devices whose tensors take the plain versions: the CPU, and ``meta``
+#: (shapes only), where the dry run counts the plain versions' ops
+PLAIN_DEVICES = ("cpu", "meta")
 
 _lock = threading.Lock()
 _STATUS: dict[str, dict] = {}

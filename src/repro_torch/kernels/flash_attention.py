@@ -242,11 +242,11 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B, D) single-token queries against a KV cache k (B, L, D),
     v (B, L, Dv) with a shared (L,) validity mask -> (B, Dv) in q's dtype.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel on
-    the current stream or raise."""
+    CPU and meta tensors take the plain version; CUDA tensors launch the
+    kernel on the current stream or raise."""
     _check(q, k, v, valid, 2, 3)
     scale = scale if scale is not None else q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
+    if q.device.type in dispatch.PLAIN_DEVICES:
         dispatch.record(SITE, "torch")
         return flash_decode_plain(q, k, v, valid, scale=scale)
     if q.device.type != "cuda":
@@ -271,15 +271,15 @@ def flash_decode_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     mask -> (B, H, Dv) in q's dtype.  The same kernel and launch count as
     :func:`flash_decode`.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel on
-    the current stream or raise."""
+    CPU and meta tensors take the plain version; CUDA tensors launch the
+    kernel on the current stream or raise."""
     _check(q, k, v, valid, 3, 4)
     B, H, D = q.shape
     kv = k.shape[2]
     if H % kv:
         raise ValueError(f"{H} query heads do not share {kv} KV heads evenly")
     scale = scale if scale is not None else D ** -0.5
-    if q.device.type == "cpu":
+    if q.device.type in dispatch.PLAIN_DEVICES:
         dispatch.record(SITE, "torch")
         return flash_decode_gqa_plain(q, k, v, valid, scale=scale)
     if q.device.type != "cuda":
@@ -464,11 +464,11 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
     KV -> (out (B, S, H, Dv) in q's dtype, lse (B, H, S) float32 on the
     card), without autograd.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel on
-    the current stream or raise."""
+    CPU and meta tensors take the plain version; CUDA tensors launch the
+    kernel on the current stream or raise."""
     _check_attn(q, k, v)
     scale = scale if scale is not None else q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
+    if q.device.type in dispatch.PLAIN_DEVICES:
         dispatch.record(SITE_ATTN, "torch")
         return flash_attention_forward_plain(q, k, v, causal=causal,
                                              scale=scale)
@@ -551,8 +551,8 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     in q's dtype, differentiable (:class:`FlashAttentionFn`).  K and V
     are read in place, query head h using KV head h // (H // KV).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel on
-    the current stream or raise."""
+    CPU and meta tensors take the plain version; CUDA tensors launch the
+    kernel on the current stream or raise."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     return FlashAttentionFn.apply(q, k, v, causal, scale)
 

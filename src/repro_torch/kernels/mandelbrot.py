@@ -137,11 +137,11 @@ def mandelbrot(c_real: torch.Tensor, c_imag: torch.Tensor, *,
     each input a 2-D view with a unit column stride, the two sharing a
     row stride; the output is contiguous.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel on
-    the current stream or raise."""
+    CPU and meta tensors take the plain version; CUDA tensors launch the
+    kernel on the current stream or raise."""
     _check(c_real, c_imag, max_iters)
     dev = c_real.device
-    if dev.type == "cpu":
+    if dev.type in dispatch.PLAIN_DEVICES:
         dispatch.record(SITE, "torch")
         return mandelbrot_plain(c_real, c_imag, max_iters)
     if dev.type != "cuda":

@@ -39,6 +39,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build, dispatch
+from repro_torch.trips import full, trips
 
 SITE_DECODE = "wkv6_decode"
 SITE_BATCHED = "wkv6_batched"
@@ -121,7 +122,9 @@ def wkv6_batched_plain(r, k, v, w, u, state, *, chunk: int = CHUNK):
     S = state.float()
     uf = u.float()
     ys = []
-    for t0 in range(0, T, chunk):
+    n = -(-T // chunk)
+    for i in trips(n):
+        t0 = i * chunk
         c = min(chunk, T - t0)
         rr, kk, vv, ww = (x[:, t0:t0 + c].float() for x in (r, k, v, w))
         la = torch.cumsum(torch.log(torch.clamp(ww, min=1e-38)), dim=1)
@@ -135,7 +138,7 @@ def wkv6_batched_plain(r, k, v, w, u, state, *, chunk: int = CHUNK):
         ys.append(A @ vv + (rr * torch.exp(la_prev)) @ S)
         tail = kk * torch.exp(la[:, -1:] - la)               # (BH, c, dk)
         S = torch.exp(la[:, -1])[:, :, None] * S + tail.transpose(1, 2) @ vv
-    return torch.cat(ys, dim=1), S
+    return torch.cat(full(ys, n), dim=1)[:, :T], S
 
 
 # --------------------------------------------- mirrors of the kernels' split
@@ -278,11 +281,11 @@ def wkv6_decode(r, k, v, w, u, state, *,
     new state goes to ``out_state`` when given (it may be ``state``
     itself), else to a new tensor.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel on
-    the current stream or raise."""
+    CPU and meta tensors take the plain version; CUDA tensors launch the
+    kernel on the current stream or raise."""
     _check(r, k, v, w, u, state, steps=False)
     dev = r.device
-    if dev.type == "cpu":
+    if dev.type in dispatch.PLAIN_DEVICES:
         dispatch.record(SITE_DECODE, "torch")
         y, new = wkv6_decode_plain(r, k, v, w, u, state)
         if out_state is None:
@@ -335,13 +338,13 @@ def wkv6_batched(r, k, v, w, u, state, *, chunk: int = CHUNK,
     Any T: the last chunk may be shorter.  The final state goes to
     ``out_state`` when given (it may be ``state`` itself).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel on
-    the current stream or raise."""
+    CPU and meta tensors take the plain version; CUDA tensors launch the
+    kernel on the current stream or raise."""
     _check(r, k, v, w, u, state, steps=True)
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     dev = r.device
-    if dev.type == "cpu":
+    if dev.type in dispatch.PLAIN_DEVICES:
         dispatch.record(SITE_BATCHED, "torch")
         y, new = wkv6_batched_plain(r, k, v, w, u, state, chunk=chunk)
         if out_state is None:

@@ -243,11 +243,11 @@ def spin_image(points: torch.Tensor, centers: torch.Tensor,
     """points: (Np, 3) f32; centers/normals: (Bo, 3) f32 ->
     (Bo, n_beta, n_alpha) f32 spin images.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel on
-    the current stream or raise."""
+    CPU and meta tensors take the plain version; CUDA tensors launch the
+    kernel on the current stream or raise."""
     _check(points, centers, normals, n_alpha, n_beta)
     dev = points.device
-    if dev.type == "cpu":
+    if dev.type in dispatch.PLAIN_DEVICES:
         dispatch.record(SITE, "torch")
         return spin_image_plain(points, centers, normals, n_alpha=n_alpha,
                                 n_beta=n_beta, alpha_max=alpha_max,

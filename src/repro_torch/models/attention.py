@@ -39,6 +39,7 @@ from repro_torch.kernels import ops
 from repro_torch.models.common import (ParamSpec, apply_rope, dense,
                                        dense_specs, rms_norm)
 from repro_torch.models.config import ModelConfig
+from repro_torch.trips import full, trips
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 FLASH_THRESHOLD = 8192      # default; ModelConfig.flash_threshold overrides
@@ -115,13 +116,15 @@ def flash_attend(q, k, v, scale, *, window: int = 0, prefix_len: int = 0,
     skip = (causal_skip and causal and prefix_len == 0
             and q_chunk == kv_chunk)
     outs = []
-    for qi in range(nq):
+    # a causal skip scans i + 1 kv chunks for q chunk i: every q chunk
+    # runs then, so each one's kv trips are counted right
+    for qi in (range(nq) if skip else trips(nq)):
         qb = q[:, qi * q_chunk:(qi + 1) * q_chunk].to(torch.float32)
         q_pos = qi * q_chunk + torch.arange(q_chunk, device=dev)
         m = torch.full((B, H, q_chunk), float("-inf"), device=dev)
         l = torch.zeros((B, H, q_chunk), device=dev)
         acc = torch.zeros((B, H, q_chunk, Dv), device=dev)
-        for ki in range(qi + 1 if skip else nk):
+        for ki in trips(qi + 1 if skip else nk):
             kb = k[:, ki * kv_chunk:(ki + 1) * kv_chunk]
             vb = v[:, ki * kv_chunk:(ki + 1) * kv_chunk]
             k_pos = ki * kv_chunk + torch.arange(kv_chunk, device=dev)
@@ -145,7 +148,7 @@ def flash_attend(q, k, v, scale, *, window: int = 0, prefix_len: int = 0,
             m = m_new
         out = acc / torch.clamp(l[..., None], min=1e-30)
         outs.append(out.to(q.dtype).transpose(1, 2))          # (B,qc,H,Dv)
-    return torch.cat(outs, dim=1)
+    return torch.cat(full(outs, nq), dim=1)
 
 
 # ==================================================================== GQA

@@ -46,8 +46,13 @@ class ParamSpec:
         fan_in = self.shape[-2] if len(self.shape) >= 2 else self.shape[-1]
         return self.init_scale / math.sqrt(max(1, fan_in))
 
-    def materialize(self, generator: torch.Generator,
+    def materialize(self, generator: Optional[torch.Generator],
                     device: torch.device) -> torch.Tensor:
+        """The leaf drawn from ``generator`` on ``device``; on ``meta``
+        an abstract tensor of its shape and dtype (nothing drawn, nothing
+        allocated: no generator exists there)."""
+        if torch.device(device).type == "meta":
+            return torch.empty(self.shape, dtype=self.dtype, device="meta")
         if self.init == "zeros":
             return torch.zeros(self.shape, dtype=self.dtype, device=device)
         if self.init == "ones":
@@ -96,9 +101,12 @@ def _materialize(specs: Specs, generator, device):
 def init_params(specs: Specs, *, seed: int, device: torch.device
                 ) -> ParamTree:
     """Draw every leaf of ``specs`` from one ``torch.Generator`` seeded
-    with ``seed`` on ``device``, leaves in sorted-key order."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed))
+    with ``seed`` on ``device``, leaves in sorted-key order; on ``meta``
+    abstract leaves (the reference's ``abstract_params``)."""
+    gen = None
+    if torch.device(device).type != "meta":
+        gen = torch.Generator(device=device)
+        gen.manual_seed(int(seed))
     return ParamTree(_materialize(specs, gen, device))
 
 

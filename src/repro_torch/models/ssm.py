@@ -38,6 +38,7 @@ from repro_torch.models.common import (ParamSpec, ParamTree, dense,
                                        rms_norm, softmax_xent)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.moe import ffn_apply, ffn_specs
+from repro_torch.trips import full, trips
 
 
 # ----------------------------------------------------------- mamba head
@@ -79,10 +80,10 @@ def selective_scan(dt, Bm, Cm, xx, A, h):
     dA = torch.exp(dt[..., None] * A)                      # (B,S,Di,N)
     dBx = (dt * xx)[..., None] * Bm[:, :, None, :]         # (B,S,Di,N)
     hs = []
-    for t in range(dt.shape[1]):
+    for t in trips(dt.shape[1]):
         h = dA[:, t] * h + dBx[:, t]
         hs.append(h)
-    hs = torch.stack(hs, dim=1)                            # (B,S,Di,N)
+    hs = torch.stack(full(hs, dt.shape[1]), dim=1)         # (B,S,Di,N)
     y = (hs * Cm[:, :, None, :]).sum(dim=-1)
     return y, h
 

@@ -32,8 +32,11 @@ Configuration is a declarative :class:`repro_torch.api.RunSpec`
 (``RDLBTrainExecutor(model, spec=spec)``); the legacy keyword vocabulary
 (``technique=``, ``rdlb_enabled=``, ``FaultPlan`` …) still works as a
 shim that builds the equivalent spec under a ``DeprecationWarning``.
-Process mode (``repro.cluster``) is not ported yet: ROADMAP.md queue A,
-item A8.
+In process mode (``spec.execution.mode == "process"``) the workers are
+processes (``repro_torch.cluster.TrainTaskRunner``): each rebuilds the
+model from its config and the shipped weights, and returns its tasks'
+gradients to the master as CPU tensors, reduced there in float32 and
+moved to the parameters' device for the optimizer.
 """
 
 from __future__ import annotations
@@ -183,6 +186,7 @@ class RDLBTrainExecutor:
         self.adaptive = adaptive
         self.opt = make_optimizer(optimizer, lr=lr)
         self.grad_clip = grad_clip
+        self._custom_loss = loss_fn is not None
         self._loss_fn = loss_fn or (lambda p, b: model.loss(p, b)[0])
         self.reset_workers()
 
@@ -220,18 +224,28 @@ class RDLBTrainExecutor:
         spec = self.spec.replace(cluster=cluster, n_tasks=self.n_tasks)
         if max_rounds is not None:
             spec = spec.override("execution.horizon", float(max_rounds))
-        if spec.execution.mode == "process":
-            raise NotImplementedError(
-                "training with mode='process' (repro.cluster."
-                "TrainTaskRunner) is not ported to repro_torch yet: "
-                "ROADMAP.md queue A, item A8")
         dev = first_tensor(params).device
         backend = TrainBackend(
             lambda t: value_and_grad(self._loss_fn, params,
                                      self._task_batch(batch, t, dev)),
             exact_accumulation=self.exact_accumulation)
+        factory = None
+        if spec.execution.mode == "process":
+            # workers as OS processes: the closure cannot cross the
+            # boundary, so ship the recipe (config + host weights and
+            # batch); every step spawns fresh interpreters that import
+            # torch and load the weights (seconds per worker) — process
+            # mode is the fault-tolerance testbed, not a fast multi-step
+            # training path
+            from repro_torch.cluster import TrainTaskRunner  # lazy import
+            if getattr(self.model, "cfg", None) is None or self._custom_loss:
+                raise ValueError(
+                    "process mode needs a model with .cfg (rebuildable "
+                    "via models.build_model) and the default loss path")
+            factory = TrainTaskRunner.from_executor(
+                self.model, params, batch, self.n_tasks)
         eng = api.build(spec, backend, n_tasks=self.n_tasks,
-                        adaptive=self.adaptive)
+                        adaptive=self.adaptive, factory=factory)
         for ew, w in zip(eng.workers, self.workers):
             ew.tasks_done = w.tasks_done     # count-based fail-stop state
         stats = api.run(spec, eng)
@@ -241,6 +255,8 @@ class RDLBTrainExecutor:
         queue = eng.queue
         grad_acc = backend.reduced()
         backend.per_task.clear()      # free them before the optimizer runs
+        if grad_acc is not None and factory is not None:
+            grad_acc = tree_map(lambda g: g.to(dev), grad_acc)
         if stats.hung or grad_acc is None:
             return StepResult(params, opt_state, float("nan"), True,
                               self.n_tasks, queue.n_duplicates,

@@ -18,9 +18,10 @@ a fixed order, so duplicates give the same tokens bit for bit).
     of the group.
   * THREADED MODE: replicas run as OS threads; rDLB duplicates race their
     originals in wall-clock time.
-
-Process mode (``repro.cluster``) is not ported yet: ROADMAP.md queue A,
-item A8.
+  * PROCESS MODE: replicas are worker processes
+    (``repro_torch.cluster.ServeTaskRunner``), each rebuilding the model
+    from its config and the shipped weights and decoding through the same
+    :func:`decode_request_groups`, so tokens are identical across modes.
 """
 
 from __future__ import annotations
@@ -174,8 +175,10 @@ class RDLBServeExecutor:
     The spec's cluster is the one perturbation vocabulary: declare dead
     replicas (``alive=False``), stragglers (``sleep_per_task`` /
     ``speed``) or count-based fail-stops (``fail_after_tasks``) there, or
-    pass ``fail_at`` to :meth:`serve`.  A replica that fail-stops stays
-    dead for later ``serve`` calls.  The model runs where its ``params``
+    pass ``fail_at`` to :meth:`serve`; the mutable ``dead`` set and
+    ``slow`` map (wid -> extra seconds a request) overlay every later
+    ``serve``.  A replica that fail-stops stays dead for later ``serve``
+    calls.  The model runs where its ``params``
     lie.  ``adaptive`` is an optional live adaptive policy object
     (``repro_torch.adaptive.AdaptiveController``; requests are unit-cost
     tasks), overriding ``spec.adaptive``.  The reference's legacy
@@ -189,28 +192,47 @@ class RDLBServeExecutor:
         self.params = params
         self.adaptive = adaptive
         self._generator = FusedGenerator(model)
+        # Live perturbation state, overlaid on the spec's cluster each
+        # serve(); spec-declared deaths seed the set so fail-stops persist
         self.dead: set[int] = {wid for wid, w in
                                enumerate(self.spec.cluster.worker_specs())
                                if not w.alive}
+        self.slow: dict[int, float] = {}      # wid -> extra s per request
 
     def _generate_chunk(self, reqs: list[Request]) -> dict:
         """Decode a chunk of requests -> {rid: tokens}."""
         return decode_request_groups(self._generator, self.params, reqs)
 
     def serve(self, requests: list[Request], *,
-              fail_at: Optional[dict] = None) -> ServeStats:
-        """Process a batch of requests; fail_at: {wid: after_n_requests}."""
+              fail_at: Optional[dict] = None,
+              max_rounds: Optional[int] = None) -> ServeStats:
+        """Process a batch of requests; fail_at: {wid: after_n_requests};
+        ``max_rounds`` bounds the virtual-time horizon."""
         N = len(requests)
         spec = self.spec
-        if spec.execution.mode == "process":
-            raise NotImplementedError(
-                "serving with mode='process' (repro.cluster) is not ported "
-                "to repro_torch yet: ROADMAP.md queue A, item A8")
-        cluster = spec.cluster.with_serve_state(dead=self.dead,
-                                                fail_at=fail_at or {})
+        # dead/slow/fail_at overlay onto the spec cluster: slow (extra
+        # seconds per request) is a real sleep in threaded mode and a
+        # speed divisor in virtual time; process mode realises both
+        # fields physically, so there it is carried by sleep_per_task
+        # alone (speed_compose=False), never counted twice
+        process = spec.execution.mode == "process"
+        cluster = spec.cluster.with_serve_state(
+            dead=self.dead, slow=self.slow, fail_at=fail_at or {},
+            speed_compose=not process)
         spec = spec.replace(cluster=cluster, n_tasks=N)
+        if max_rounds is not None:
+            spec = spec.override("execution.horizon", float(max_rounds))
         backend = ServeBackend(requests, self._generate_chunk)
-        eng = api.build(spec, backend, n_tasks=N, adaptive=self.adaptive)
+        factory = None
+        if process:
+            # replicas as worker processes: ship the decode recipe (config,
+            # host weights, request triples); each child rebuilds the
+            # model and decodes through decode_request_groups
+            from repro_torch.cluster import ServeTaskRunner  # lazy import
+            factory = ServeTaskRunner.from_model(self.model, self.params,
+                                                 requests)
+        eng = api.build(spec, backend, n_tasks=N, adaptive=self.adaptive,
+                        factory=factory)
         stats = api.run(spec, eng)
         for ew in eng.workers:              # fail-stops persist
             if not ew.alive:

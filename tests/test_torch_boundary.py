@@ -1,6 +1,7 @@
-"""The port's import boundary: ``repro_torch`` loads neither ``jax`` nor
-any module of the JAX package ``repro``, and its entry points never fall
-back to the CPU on their own."""
+"""The port's import boundary: ``repro_torch`` (``cluster/`` and
+``launch/`` included) loads neither ``jax`` nor any module of the JAX
+package ``repro``, and its entry points never fall back to the CPU on
+their own."""
 
 import os
 import subprocess
@@ -24,7 +25,11 @@ _PROBE = textwrap.dedent("""
     assert img.shape == (64, 64) and img.sum() > 0, img.sum()
     for pkg in ("repro_torch.adaptive", "repro_torch.obs",
                 "repro_torch.core.devicesim", "repro_torch.core.theory",
-                "repro_torch.core.refqueue"):
+                "repro_torch.core.refqueue", "repro_torch.cluster.master",
+                "repro_torch.cluster.runners", "repro_torch.cluster._child",
+                "repro_torch.launch.steps", "repro_torch.launch.dryrun",
+                "repro_torch.launch.op_analysis", "repro_torch.launch.mesh",
+                "repro_torch.distributed.partitioner"):
         assert pkg in sys.modules, pkg
     bad = sorted(k for k in sys.modules
                  if k == "jax" or k.startswith("jax.")

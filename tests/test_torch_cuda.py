@@ -23,7 +23,8 @@ integer field identical.  ``WKV6BatchedFn``'s gradients (the backward in
 PyTorch ops) against autograd through the plain version within 1e-4
 (float32) and 2**-6 (bfloat16) of their largest magnitude; rwkv6 training
 on the card against the CPU as olmo's; checkpoints of CUDA tensors bit
-for bit.
+for bit; process mode on the card (spawned children): tiles and tokens
+equal the in-process results exactly, every child on the kernels.
 """
 
 import importlib.util
@@ -615,3 +616,79 @@ def test_smoke_config_on_the_card_equals_cpu(cuda, arch):
     assert chip_smoke.SMOKE_TOL == {"logits": (1e-4, 1e-5), "loss": 1e-5,
                                     "grads": 1e-4}
     assert gaps["ok"], gaps
+
+
+# ------------------------------------------------------------ process mode
+def _process_spec(n_tasks, workers):
+    from repro_torch import api
+    return api.RunSpec(
+        scheduling=api.SchedulingSpec(technique="FAC"),
+        cluster=api.ClusterSpec(n_workers=len(workers),
+                                workers=tuple(workers)),
+        execution=api.ExecutionSpec(mode="process", stall_timeout=60.0,
+                                    wall_timeout=300.0),
+        n_tasks=n_tasks)
+
+
+def test_process_mode_tiles_on_the_card(cuda):
+    """Mandelbrot tiles in spawned children on the card, one SIGKILLed
+    after its first chunk: the image equals the card's own render, and
+    every child that reported ran the kernel through ``cuda``."""
+    import functools
+    from repro_torch import api, cluster
+    from repro_torch.runtime import FnBackend
+    side, tile, iters = 256, 64, 64
+    n = mandelbrot.n_tiles(side, tile)
+    spec = _process_spec(n, [api.WorkerSpec(sleep_per_task=0.05),
+                             api.WorkerSpec(sleep_per_task=0.05,
+                                            fail_after_tasks=1)])
+    backend = FnBackend(task_fn=functools.partial(
+        mandelbrot.compute_tile, side=side, tile=tile, max_iters=iters,
+        device="cuda"))
+    cluster.reset_runs()
+    st = api.execute(spec, backend)
+    assert not st.hung and st.n_finished == n
+    img = mandelbrot.assemble(backend.results, side=side, tile=tile)
+    np.testing.assert_array_equal(
+        img, mandelbrot.escape_counts(side, iters, device=cuda))
+    (run,) = cluster.runs()
+    reports = [c["kernels"] for c in run["children"].values()
+               if c["kernels"] is not None]
+    assert reports and all(r["status"]["mandelbrot"]["path"] == "cuda"
+                           and r["launches"]["mandelbrot"] > 0
+                           for r in reports)
+
+
+def test_process_mode_serving_on_the_card(cuda):
+    """A float32 smoke model served by spawned replicas on the card:
+    tokens equal the threaded executor's, flash_decode launched in the
+    children."""
+    from repro_torch import api, cluster
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import build_model
+    from repro_torch.runtime import RDLBServeExecutor, Request
+    model = build_model(get_smoke("olmo-1b").replace(dtype="float32"))
+    params = model.init(0, device=cuda)
+
+    def reqs():
+        r = np.random.default_rng(0)
+        return [Request(i, r.integers(0, 512, size=5 + i % 3)
+                        .astype(np.int32), max_new_tokens=4)
+                for i in range(6)]
+
+    spec = (api.serve_spec(n_workers=2).override("execution.mode", "process")
+            .override("execution.stall_timeout", 60.0)
+            .override("execution.wall_timeout", 300.0))
+    cluster.reset_runs()
+    got = reqs()
+    assert not RDLBServeExecutor(model, params, spec=spec).serve(got).hung
+    want = reqs()
+    RDLBServeExecutor(model, params, spec=api.serve_spec(
+        n_workers=2, threaded=True)).serve(want)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.output, w.output)
+    (run,) = cluster.runs()
+    reports = [c["kernels"] for c in run["children"].values()
+               if c["kernels"] is not None]
+    assert reports and all(r["launches"]["flash_decode"] > 0
+                           for r in reports)

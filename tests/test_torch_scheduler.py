@@ -85,12 +85,17 @@ def test_fault_scenarios_identical(scenario):
 
 
 def test_unported_paths_raise():
-    """Process mode needs a module of a later slice: it raises instead of
-    running something else.  Adaptive re-planning and live metrics are
-    ported: the engine carries a controller and a metrics hub."""
+    """Every path is ported now: process mode builds a ClusterRun, and
+    only what the reference refuses raises (an adaptive policy in process
+    mode).  Adaptive re-planning and live metrics: the engine carries a
+    controller and a metrics hub."""
+    from repro_torch.cluster import ClusterRun
     base = tapi.RunSpec(cluster=tapi.ClusterSpec(n_workers=2), n_tasks=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tapi.build(base.override("execution.mode", "process"),
+    process = base.override("execution.mode", "process")
+    assert isinstance(tapi.build(process, tsim.SimBackend(np.ones(4))),
+                      ClusterRun)
+    with pytest.raises(ValueError, match="process mode"):
+        tapi.build(process.override("adaptive.enabled", True),
                    tsim.SimBackend(np.ones(4)))
     from repro_torch.adaptive import AdaptiveController
     eng = tapi.build(base.override("adaptive.enabled", True),

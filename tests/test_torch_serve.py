@@ -143,10 +143,22 @@ def test_executor_paths_agree():
 
 
 def test_process_mode_names_its_roadmap_item():
+    """Process mode (ROADMAP A8, done) serves: replicas are worker
+    processes and the tokens are the in-process run's; an adaptive
+    policy is refused there, as the reference refuses it."""
     _, _, tm, tp = pair("dense")
-    spec = api.serve_spec(n_workers=2).override("execution.mode", "process")
-    with pytest.raises(NotImplementedError, match="A8"):
-        RDLBServeExecutor(tm, tp, spec=spec).serve(
+    spec = (api.serve_spec(n_workers=2).override("execution.mode", "process")
+            .override("execution.stall_timeout", 120.0)
+            .override("execution.wall_timeout", 300.0))
+    reqs = _requests(128, 2, [4], 2, seed=0)
+    assert not RDLBServeExecutor(tm, tp, spec=spec).serve(reqs).hung
+    want = _requests(128, 2, [4], 2, seed=0)
+    RDLBServeExecutor(tm, tp, spec=api.serve_spec(n_workers=2)).serve(want)
+    for r, w in zip(reqs, want):
+        np.testing.assert_array_equal(r.output, w.output)
+    adaptive = spec.replace(adaptive=api.AdaptiveSpec(enabled=True))
+    with pytest.raises(ValueError, match="process mode"):
+        RDLBServeExecutor(tm, tp, spec=adaptive).serve(
             _requests(128, 2, [4], 2, seed=0))
 
 

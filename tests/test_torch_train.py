@@ -357,12 +357,26 @@ def test_spec_and_process_mode():
         RDLBTrainExecutor(model, spec=api.train_spec(), n_workers=2)
     with pytest.raises(ValueError, match="n_tasks"):
         RDLBTrainExecutor(model, spec=api.train_spec().replace(n_tasks=None))
-    spec = api.train_spec().override("execution.mode", "process")
-    ex = RDLBTrainExecutor(model, spec=spec)
+    # process mode runs (repro_torch.cluster): the same step as the
+    # in-process one; a custom loss cannot be rebuilt in a child
+    spec = (api.train_spec(n_workers=2, n_tasks=4)
+            .override("execution.mode", "process")
+            .override("execution.stall_timeout", 120.0)
+            .override("execution.wall_timeout", 300.0))
+    ex = RDLBTrainExecutor(model, spec=spec, exact_accumulation=True)
     params = model.init(0, device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
-        ex.train_step(params, ex.opt.init(params),
-                      batch_for_step(CFG, 0, 8, 8))
+    batch = batch_for_step(CFG, 0, 8, 8)
+    res = ex.train_step(params, ex.opt.init(params), batch)
+    vex = RDLBTrainExecutor(model, spec=api.train_spec(n_workers=2,
+                                                       n_tasks=4),
+                            exact_accumulation=True)
+    vres = vex.train_step(params, vex.opt.init(params), batch)
+    assert not res.hung and res.loss == vres.loss
+    assert trees_equal(res.params, vres.params)
+    custom = RDLBTrainExecutor(model, spec=spec,
+                               loss_fn=lambda p, b: model.loss(p, b)[0])
+    with pytest.raises(ValueError, match="default loss path"):
+        custom.train_step(params, custom.opt.init(params), batch)
 
 
 # --------------------------------------------------------------- launcher
