@@ -158,7 +158,26 @@ Phases, each fatal when it fails:
      peak memory per child and of the card, payload bytes and chaos
      events; afterwards no child is left and the card's memory is back
      at its level before the phase;
-  9. print one JSON line with the simulator's numbers (``{"devicesim":
+  9. the serving executor's other paths: olmo-1b at full width and
+     depth in bfloat16 with seeded weights serves 5 requests (prompts of
+     37, 37, 64, 37 and 37 tokens, 16 new tokens) through GSS over P = 4
+     threads in each of the four (``batch_decode``, ``fused_decode``)
+     modes, once failure-free and once with worker 1 fail-stopping
+     holding its first chunk: tokens equal bit for bit within a mode, at
+     least one duplicate; launch and model-call counts set to 0 just
+     before each run and read just after, each layer launching
+     flash_attention once a prefill call and flash_decode once a decode
+     step, the per-token loop modes calling no prefill; each run's wall
+     seconds, requests/s and duplicates.  The legacy keywords (each
+     construction warns): a concurrent SS run over 3 workers with a
+     straggler and a fail-stop (not hung, the worker dead, the tokens of
+     the mode that decodes each request alone), the hang without rDLB,
+     and ``fail_worker(2)`` (worker 2 takes nothing, tokens unchanged).
+     float32 copies of olmo-1b and rwkv6-1.6b at 2 layers, full width
+     (3 requests, GSS over 2 threads): the four modes give the same
+     greedy tokens through the kernels, rwkv6's per-token loop
+     launching wkv6_decode and no wkv6_batched;
+ 10. print one JSON line with the simulator's numbers (``{"devicesim":
      ...}``), one with each kernel's launches, error, times and bound,
      then the result line.
 
@@ -2910,6 +2929,284 @@ def drive_process(dev, img, spins) -> dict:
             "flash_attention": train["kill"]["launches"]["flash_attention"]}
 
 
+# ------------------------------------------------------------ phase 9
+# The serving executor's other paths.  olmo-1b at full width and depth
+# in bfloat16 serves one request a prompt length of EXEC_PROMPTS: GSS
+# over EXEC_WORKERS threads hands out the first two (of equal length)
+# as one chunk, which batch_decode decodes as one group of two, and the
+# rest one by one.  The loop modes walk every prompt token through
+# decode_step, so no 1000-token prompt is served here, and 5 requests,
+# one of 64 tokens, keep the phase near 90 s (8 requests took 126 s, 6
+# took 120 s, 5 with two of 64 tokens 98 s).  A fail-stop run loses
+# worker 1 holding its first chunk (EXEC_FAIL).
+EXEC_ARCH = "olmo-1b"
+EXEC_PROMPTS = (37, 37, 64, 37, 37)
+EXEC_WORKERS = 4
+EXEC_FAIL = {1: 0}
+EXEC_MODES = ((True, True), (False, True), (True, False), (False, False))
+# float32 copies at 2 layers, full width: greedy tokens equal across the
+# four modes, over the first EXEC_CHECK_REQUESTS requests through GSS
+# over EXEC_CHECK_WORKERS threads (a first chunk of two again).  Each
+# arch's (prefill site, decode site).
+EXEC_CHECK_ARCHS = ("olmo-1b", "rwkv6-1.6b")
+EXEC_CHECK_REQUESTS = 3
+EXEC_CHECK_WORKERS = 2
+EXEC_SITES = {"olmo-1b": ("flash_attention", "flash_decode"),
+              "rwkv6-1.6b": ("wkv6_batched", "wkv6_decode")}
+
+
+def exec_label(mode) -> str:
+    batch, fused = mode
+    return f"batch_decode={batch},fused_decode={fused}"
+
+
+def exec_requests(vocab: int, n: int | None = None) -> list:
+    """The first n (all) requests of SERVE_NEW new tokens, one a prompt
+    length of EXEC_PROMPTS, seeded tokens."""
+    import numpy as np
+    from repro_torch.runtime import Request
+    rng = np.random.default_rng(4)
+    return [Request(i, rng.integers(0, vocab, size=p).astype(np.int32),
+                    max_new_tokens=SERVE_NEW)
+            for i, p in enumerate(EXEC_PROMPTS[:n])]
+
+
+class ModelCalls:
+    """Counts a model's ``prefill`` and ``decode_step`` calls, from any
+    thread, by wrapping both on the instance."""
+
+    def __init__(self, model):
+        import threading
+        self._lock = threading.Lock()
+        self.n = {"prefill": 0, "decode_step": 0}
+        for name in self.n:
+            setattr(model, name, self._counting(name, getattr(model, name)))
+
+    def _counting(self, name: str, fn):
+        def call(*args, **kwargs):
+            with self._lock:
+                self.n[name] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    def take(self) -> dict:
+        """The counts since the last take, then set to 0."""
+        with self._lock:
+            out, self.n = self.n, dict.fromkeys(self.n, 0)
+        return out
+
+
+def exec_launch_problems(sites, n_layers: int, fused: bool, calls: dict,
+                         launches: dict) -> list:
+    """What is wrong with one run's launches, from the model calls it
+    made: each layer launches the prefill site once a prefill call and
+    the decode site once a decode step, nothing else launches, the loop
+    modes call no prefill and every mode decodes."""
+    problems = []
+    if (calls["prefill"] > 0) != fused:
+        problems.append(f"{calls['prefill']} prefill calls")
+    if calls["decode_step"] <= 0:
+        problems.append("no decode step")
+    want = {sites[0]: n_layers * calls["prefill"],
+            sites[1]: n_layers * calls["decode_step"]}
+    want = {k: v for k, v in want.items() if v}
+    got = {k: v for k, v in launches.items() if v}
+    if got != want:
+        problems.append(f"launches {got}, expected {want}")
+    return problems
+
+
+def exec_serve(ex, reqs, calls: ModelCalls, **kw) -> tuple:
+    """``ex.serve(reqs, **kw)`` with launch and model-call counts set to
+    0 just before and read just after -> (stats, wall seconds, launches,
+    calls); every request must be served, well formed."""
+    from repro_torch.kernels import dispatch
+    calls.take()
+    dispatch.reset_launches()
+    t0 = time.perf_counter()
+    st = ex.serve(reqs, **kw)       # tokens reach the host: synchronised
+    wall = time.perf_counter() - t0
+    launches, n = dispatch.launches(), calls.take()
+    vocab = ex.model.cfg.vocab_size
+    for r in reqs:
+        if r.output is None and not st.hung:
+            fail(f"request {r.rid} not served (stats {st})")
+        if r.output is not None and (r.output.shape != (r.max_new_tokens,)
+                                     or not ((r.output >= 0)
+                                             & (r.output < vocab)).all()):
+            fail(f"request {r.rid} output malformed: {r.output}")
+    return st, wall, launches, n
+
+
+def exec_tokens(reqs) -> dict:
+    return {r.rid: r.output for r in reqs}
+
+
+def same_tokens(a: dict, b: dict) -> list:
+    """rids whose tokens differ between two runs."""
+    import numpy as np
+    return [rid for rid in a if not np.array_equal(a[rid], b[rid])]
+
+
+def exec_spec(n_workers: int = EXEC_WORKERS):
+    from repro_torch import api
+    return api.serve_spec(technique="GSS", n_workers=n_workers,
+                          threaded=True)
+
+
+def exec_mode(model, params, calls: ModelCalls, mode, sites) -> dict:
+    """One (batch_decode, fused_decode) mode: a fail-stop run, then a
+    failure-free one; each run's launches checked, the fail-stop run with
+    a duplicate and worker 1 dead, the tokens equal bit for bit.
+    Returns the failure-free tokens and the fail-stop run's launches."""
+    from repro_torch.runtime import RDLBServeExecutor
+    cfg, label = model.cfg, exec_label(mode)
+    runs = {}
+    for failing in (True, False):
+        reqs = exec_requests(cfg.vocab_size)
+        ex = RDLBServeExecutor(model, params, spec=exec_spec(),
+                               batch_decode=mode[0], fused_decode=mode[1])
+        st, wall, launches, n = exec_serve(
+            ex, reqs, calls, fail_at=EXEC_FAIL if failing else None)
+        print(f"exec,{cfg.name},{cfg.dtype},layers={cfg.n_layers},{label},"
+              f"{'fail-stop' if failing else 'failure-free'},"
+              f"requests={len(reqs)},wall_s={wall:.4f},"
+              f"requests_s={len(reqs) / wall:.3f},"
+              f"n_duplicates={st.n_duplicates},"
+              f"wasted={st.wasted_requests},by_worker={st.by_worker},"
+              f"calls={n},launches={launches}", flush=True)
+        if st.hung:
+            fail(f"{cfg.name} {label}: the run hung")
+        problems = exec_launch_problems(sites, cfg.n_layers, mode[1], n,
+                                        launches)
+        if problems:
+            fail(f"{cfg.name} {label}: {problems}")
+        if failing and (st.n_duplicates < 1 or 1 not in ex.dead):
+            fail(f"{cfg.name} {label}: the fail-stop run issued "
+                 f"{st.n_duplicates} duplicates, dead {ex.dead}")
+        runs[failing] = (exec_tokens(reqs), launches)
+    bad = same_tokens(runs[True][0], runs[False][0])
+    if bad:
+        fail(f"{cfg.name} {label}: requests {bad} under a fail-stop "
+             f"differ from the failure-free run")
+    return {"tokens": runs[False][0], "launches": runs[True][1]}
+
+
+def exec_legacy(model, params, calls: ModelCalls, tokens: dict) -> None:
+    """The legacy keywords (each construction warns), serve through a
+    straggler and a fail-stop in concurrent mode (the tokens of the mode
+    that decodes each request alone, as SS does), the hang without rDLB,
+    and ``fail_worker`` (the batched fused tokens)."""
+    import warnings
+    from repro_torch.runtime import RDLBServeExecutor
+    vocab = model.cfg.vocab_size
+
+    def legacy(**kw):
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            ex = RDLBServeExecutor(model, params, **kw)
+        if not any(issubclass(w.category, DeprecationWarning)
+                   and "RDLBServeExecutor" in str(w.message) for w in seen):
+            fail(f"RDLBServeExecutor({kw}) raised no DeprecationWarning")
+        return ex
+
+    ex = legacy(n_workers=3, technique="SS", concurrent=True)
+    ex.slow[0] = 0.02
+    reqs = exec_requests(vocab)
+    st, wall, _, _ = exec_serve(ex, reqs, calls, fail_at={1: 1})
+    print(f"exec,legacy,concurrent SS P=3,slow[0]=0.02,fail_at={{1: 1}}:"
+          f" hung={st.hung},dead={sorted(ex.dead)},"
+          f"n_duplicates={st.n_duplicates},wall_s={wall:.4f}")
+    bad = same_tokens(exec_tokens(reqs), tokens[(False, True)])
+    if st.hung or 1 not in ex.dead or bad:
+        fail(f"concurrent legacy run: hung={st.hung}, dead={ex.dead}, "
+             f"requests {bad} differ")
+    ex = legacy(n_workers=2, technique="SS", rdlb_enabled=False,
+                concurrent=True)
+    st, wall, _, _ = exec_serve(ex, exec_requests(vocab, 4), calls,
+                                fail_at={1: 0})
+    print(f"exec,legacy,no rDLB,fail_at={{1: 0}}: hung={st.hung},"
+          f"wall_s={wall:.4f}")
+    if not st.hung:
+        fail("without rDLB a fail-stop must hang the run")
+    ex = RDLBServeExecutor(model, params, spec=exec_spec())
+    ex.fail_worker(2)
+    reqs = exec_requests(vocab)
+    st, wall, _, _ = exec_serve(ex, reqs, calls)
+    print(f"exec,fail_worker(2): by_worker={st.by_worker},"
+          f"wall_s={wall:.4f}")
+    bad = same_tokens(exec_tokens(reqs), tokens[(True, True)])
+    if st.hung or st.by_worker.get(2, 0) or bad:
+        fail(f"fail_worker(2): hung={st.hung}, by_worker={st.by_worker}, "
+             f"requests {bad} differ")
+
+
+def exec_cross_mode(dev, arch: str) -> dict:
+    """A float32 copy of ``arch`` at 2 layers, full width: the four modes
+    (failure-free) give the same greedy tokens through the kernels, each
+    run's launches checked.  Returns the launches per mode label."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.runtime import RDLBServeExecutor
+    cfg = get_config(arch).replace(n_layers=2, dtype="float32")
+    model = build_model(cfg)
+    params = model.init(1, device=dev)
+    calls = ModelCalls(model)
+    out, first = {}, None
+    for mode in EXEC_MODES:
+        reqs = exec_requests(cfg.vocab_size, EXEC_CHECK_REQUESTS)
+        ex = RDLBServeExecutor(model, params,
+                               spec=exec_spec(EXEC_CHECK_WORKERS),
+                               batch_decode=mode[0], fused_decode=mode[1])
+        st, wall, launches, n = exec_serve(ex, reqs, calls)
+        problems = exec_launch_problems(EXEC_SITES[arch], cfg.n_layers,
+                                        mode[1], n, launches)
+        if st.hung or problems:
+            fail(f"{arch} float32 {exec_label(mode)}: hung={st.hung} "
+                 f"{problems}")
+        tokens = exec_tokens(reqs)
+        first = first or tokens
+        bad = same_tokens(tokens, first)
+        if bad:
+            fail(f"{arch} float32 2 layers: requests {bad} in "
+                 f"{exec_label(mode)} differ from {exec_label(EXEC_MODES[0])}")
+        out[exec_label(mode)] = launches
+        print(f"exec,{arch},float32,layers=2,{exec_label(mode)}: tokens "
+              f"equal,wall_s={wall:.4f},launches={launches}")
+    del model, params, calls
+    torch.cuda.empty_cache()
+    return out
+
+
+def drive_executor(dev, rows: dict) -> None:
+    """Phase 9: the executor's four decode modes, its legacy and
+    concurrent surface, and the float32 cross-mode check; adds each
+    kernel's launches per mode to its row."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config(EXEC_ARCH)
+    model = build_model(cfg)
+    params = model.init(0, device=dev)
+    calls = ModelCalls(model)
+    tokens = {}
+    for mode in EXEC_MODES:
+        res = exec_mode(model, params, calls, mode, EXEC_SITES[EXEC_ARCH])
+        tokens[mode] = res["tokens"]
+        for site in EXEC_SITES[EXEC_ARCH]:
+            rows[site].setdefault("launches_executor", {})[
+                exec_label(mode)] = res["launches"].get(site, 0)
+    exec_legacy(model, params, calls, tokens)
+    del model, params, calls
+    torch.cuda.empty_cache()
+    for arch in EXEC_CHECK_ARCHS:
+        for label, launches in exec_cross_mode(dev, arch).items():
+            for site in EXEC_SITES[arch]:
+                rows[site].setdefault("launches_executor_float32", {})[
+                    f"{arch},{label}"] = launches.get(site, 0)
+
+
 def ptxas_entries(log: str) -> list:
     """(source, mangled kernel name, its "Used ..." line, its spill
     line) for each kernel entry in nvcc's ``-Xptxas -v`` report."""
@@ -3087,7 +3384,12 @@ def main() -> int:
         rows[site]["launches_process"] = n
     phase_done(8)
 
-    # phase 9: report
+    # phase 9: the serving executor's other paths, each run with its own
+    # launch counts
+    drive_executor(dev, rows)
+    phase_done(9)
+
+    # phase 10: report
     print(json.dumps({"devicesim": sim}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {

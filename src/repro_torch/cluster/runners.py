@@ -132,20 +132,24 @@ class ServeTaskRunner:
 
     ``requests`` is the picklable projection of the serve batch:
     ``(rid, prompt np.int32, max_new_tokens)`` triples indexed by task
-    id.  Decoding goes through the SAME grouped, padded, device-resident
-    path as the in-process executor
-    (``repro_torch.runtime.serve_executor.decode_request_groups``), so
-    outputs are token-identical across execution modes."""
+    id.  Decoding goes through the SAME path as the in-process executor
+    (``repro_torch.runtime.serve_executor.decode_request_groups``) with
+    its ``batch_decode`` and ``fused_decode`` flags, so outputs are
+    token-identical across execution modes."""
     cfg: Any                     # repro_torch.models.config.ModelConfig
     params: Any                  # host tree; None once shipped
     requests: Any                # list of (rid, prompt, max_new)
     device: str = "cuda"
     params_path: Optional[str] = None
+    batch_decode: bool = True
+    fused_decode: bool = True    # device-resident prefill + decode loop
 
     start_method = "spawn"
 
     @classmethod
-    def from_model(cls, model, params, requests) -> "ServeTaskRunner":
+    def from_model(cls, model, params, requests, *,
+                   batch_decode: bool = True,
+                   fused_decode: bool = True) -> "ServeTaskRunner":
         cfg = getattr(model, "cfg", None)
         if cfg is None:
             raise ValueError("process mode needs a model with .cfg "
@@ -153,7 +157,8 @@ class ServeTaskRunner:
         return cls(cfg, host_tree(params),
                    [(r.rid, np.asarray(r.prompt, dtype=np.int32),
                      int(r.max_new_tokens)) for r in requests],
-                   device=first_tensor(params).device.type)
+                   device=first_tensor(params).device.type,
+                   batch_decode=batch_decode, fused_decode=fused_decode)
 
     def ship(self, directory: str) -> "ServeTaskRunner":
         return _ship(self, directory)
@@ -163,12 +168,16 @@ class ServeTaskRunner:
         from repro_torch.runtime.serve_executor import (FusedGenerator,
                                                         Request)
         dev = _child_device(self.device)
-        self._gen = FusedGenerator(build_model(self.cfg))
+        self._model = build_model(self.cfg)
+        self._gen = FusedGenerator(self._model) if self.fused_decode \
+            else None
         self._params = _weights_on(self, dev)
         self._reqs = {rid: Request(rid, prompt, max_new)
                       for rid, prompt, max_new in self.requests}
 
     def __call__(self, tasks: Sequence[int]) -> dict:
         from repro_torch.runtime.serve_executor import decode_request_groups
-        return decode_request_groups(self._gen, self._params,
-                                     [self._reqs[t] for t in tasks])
+        return decode_request_groups(
+            self._model, self._params, self._model.decode_step,
+            [self._reqs[t] for t in tasks], batch_decode=self.batch_decode,
+            generator=self._gen)

@@ -17,7 +17,18 @@ peak, fit one card's 80 GB, and the roofline terms on the card's
 spec-sheet peaks (``launch.mesh``) with the dominant one.  A cell that
 needs sub-quadratic attention is skipped as N/A by design, as the
 reference's.  Artifacts: ``artifacts/dryrun_torch/<arch>__<shape>.json``
-and ``summary.json`` (``artifacts/`` is not tracked).
+(``<arch>__<shape>__<tag>.json`` with ``--tag``) and ``summary.json``
+(``artifacts/`` is not tracked).
+
+The reference's tuning flags apply to every cell of a run, as
+``ModelConfig.replace`` overrides, and each record holds the overrides
+applied and the microbatches used: ``--flash-threshold N``
+(``flash_threshold``), ``--causal-skip`` (``flash_causal_skip``),
+``--attn-bf16`` (``attn_scores_bf16``), ``--parallelism``,
+``--moe-group N`` (``moe_group_size``), ``--remat POLICY``
+(``remat_policy``); ``--microbatches N`` replaces a training cell's own
+count (0 keeps it).  The reference's ``--mesh`` (single pod, multi pod)
+is left out: one card has no mesh (``launch.mesh``).
 """
 
 from __future__ import annotations
@@ -27,6 +38,7 @@ import json
 import time
 import traceback
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -44,8 +56,12 @@ ARTIFACTS = (Path(__file__).resolve().parents[3] / "artifacts"
 
 
 def measure(cfg, shape: Shape, *, microbatches: int = 1,
-            optimizer: str = "adamw") -> dict:
-    """Count one step of ``cfg`` at ``shape`` on ``meta`` tensors."""
+            optimizer: str = "adamw",
+            overrides: Optional[dict] = None) -> dict:
+    """Count one step of ``cfg`` (with ``overrides`` applied by
+    ``cfg.replace``) at ``shape`` on ``meta`` tensors."""
+    if overrides:
+        cfg = cfg.replace(**overrides)
     batch_bytes = cache_bytes = opt_bytes = 0
     t0 = time.perf_counter()
     if shape.kind == "train":
@@ -95,34 +111,42 @@ def measure(cfg, shape: Shape, *, microbatches: int = 1,
     }
 
 
-def run_cell(arch: str, shape_name: str) -> dict:
-    """The record of one cell at the reference's configuration: its
-    microbatches and optimizer for a training shape."""
+def run_cell(arch: str, shape_name: str, *,
+             overrides: Optional[dict] = None,
+             microbatches: int = 0) -> dict:
+    """The record of one cell at the reference's configuration with
+    ``overrides``: for a training shape its optimizer, and its
+    microbatches unless ``microbatches`` is set."""
     shape = SHAPES[shape_name]
     tc = train_config(arch)
+    mb = microbatches or tc["num_microbatches"]
     rec = {"arch": arch, "shape": shape_name, "kind": shape.kind,
-           "seq_len": shape.seq_len, "global_batch": shape.global_batch}
-    rec.update(measure(get_config(arch), shape,
-                       microbatches=tc["num_microbatches"],
-                       optimizer=tc["optimizer"]))
+           "seq_len": shape.seq_len, "global_batch": shape.global_batch,
+           "overrides": dict(overrides or {})}
+    if shape.kind == "train":
+        rec["microbatches"] = mb
+    rec.update(measure(get_config(arch), shape, microbatches=mb,
+                       optimizer=tc["optimizer"], overrides=overrides))
     rec["ok"] = True
     return rec
 
 
-def run(archs, shapes, out_dir: Path) -> tuple[list, int]:
+def run(archs, shapes, out_dir: Path, *, overrides: Optional[dict] = None,
+        microbatches: int = 0, tag_suffix: str = "") -> tuple[list, int]:
     out_dir.mkdir(parents=True, exist_ok=True)
     results = []
     for arch in archs:
         app = applicable_shapes(get_config(arch))
         for shape_name in shapes:
-            tag = f"{arch}__{shape_name}"
+            tag = f"{arch}__{shape_name}{tag_suffix}"
             if shape_name not in app:
                 rec = {"arch": arch, "shape": shape_name, "ok": None,
                        "skip": "N/A-by-design (needs sub-quadratic attn)"}
                 print(f"[skip] {tag}: {rec['skip']}", flush=True)
             else:
                 try:
-                    rec = run_cell(arch, shape_name)
+                    rec = run_cell(arch, shape_name, overrides=overrides,
+                                   microbatches=microbatches)
                     t = rec["roofline"]
                     print(f"[ok]   {tag}: {rec['seconds']}s "
                           f"flops={rec['flops']:.3e} "
@@ -152,10 +176,34 @@ def main(argv=None) -> None:
     ap.add_argument("--shape", default="all",
                     help="shape name | comma list | all")
     ap.add_argument("--out", default=str(ARTIFACTS))
+    ap.add_argument("--tag", default="", help="artifact filename suffix")
+    ap.add_argument("--flash-threshold", type=int, default=0)
+    ap.add_argument("--causal-skip", action="store_true")
+    ap.add_argument("--attn-bf16", action="store_true")
+    ap.add_argument("--parallelism", default="")
+    ap.add_argument("--moe-group", type=int, default=0)
+    ap.add_argument("--remat", default="")
+    ap.add_argument("--microbatches", type=int, default=0)
     args = ap.parse_args(argv)
     archs = list(ARCH_IDS) if args.arch == "all" else args.arch.split(",")
     shapes = list(SHAPES) if args.shape == "all" else args.shape.split(",")
-    _, n_fail = run(archs, shapes, Path(args.out))
+    overrides = {}
+    if args.flash_threshold:
+        overrides["flash_threshold"] = args.flash_threshold
+    if args.causal_skip:
+        overrides["flash_causal_skip"] = True
+    if args.attn_bf16:
+        overrides["attn_scores_bf16"] = True
+    if args.parallelism:
+        overrides["parallelism"] = args.parallelism
+    if args.moe_group:
+        overrides["moe_group_size"] = args.moe_group
+    if args.remat:
+        overrides["remat_policy"] = args.remat
+    _, n_fail = run(archs, shapes, Path(args.out),
+                    overrides=overrides or None,
+                    microbatches=args.microbatches,
+                    tag_suffix=f"__{args.tag}" if args.tag else "")
     raise SystemExit(1 if n_fail else 0)
 
 

@@ -110,6 +110,15 @@ def init_params(specs: Specs, *, seed: int, device: torch.device
     return ParamTree(_materialize(specs, gen, device))
 
 
+def param_count(specs: Specs) -> int:
+    """The number of parameters ``specs`` declares (nothing drawn)."""
+    if isinstance(specs, ParamSpec):
+        return math.prod(specs.shape)
+    if isinstance(specs, (list, tuple)):
+        return sum(param_count(s) for s in specs)
+    return sum(param_count(s) for s in specs.values())
+
+
 def tree_children(tree):
     """(key, child) pairs of a tree node in the reference's flatten order
     (dict keys sorted, lists in order); None for a leaf tensor."""

@@ -79,9 +79,13 @@ def selective_scan(dt, Bm, Cm, xx, A, h):
     A: (Di,N); h: (B,Di,N).  Returns (y (B,S,Di), final h)."""
     dA = torch.exp(dt[..., None] * A)                      # (B,S,Di,N)
     dBx = (dt * xx)[..., None] * Bm[:, :, None, :]         # (B,S,Di,N)
+    # views of each step, taken once: the backward of one unbind stacks
+    # the S step gradients, where S reads dA[:, t] would each write a
+    # zero gradient of all of dA (O(S^2) bytes)
+    dAs, dBxs = dA.unbind(1), dBx.unbind(1)
     hs = []
     for t in trips(dt.shape[1]):
-        h = dA[:, t] * h + dBx[:, t]
+        h = dAs[t] * h + dBxs[t]
         hs.append(h)
     hs = torch.stack(full(hs, dt.shape[1]), dim=1)         # (B,S,Di,N)
     y = (hs * Cm[:, :, None, :]).sum(dim=-1)

@@ -473,24 +473,84 @@ def _reqs(cls, n=6):
             for i in range(n)]
 
 
-def test_serve_executor_process_mode_token_parity():
+@pytest.mark.parametrize("batch_decode,fused_decode",
+                         [(True, True), (False, False)])
+def test_serve_executor_process_mode_token_parity(batch_decode, fused_decode,
+                                                  monkeypatch):
     """RDLBServeExecutor with mode='process': replicas are real
-    processes; outputs are token-identical to the in-process path."""
+    processes, decoding with the executor's two flags (the per-request,
+    per-token loop too); outputs are token-identical to the in-process
+    path and to a threaded run."""
     model = build_model(CFG)
     params = model.init(0, device="cpu")
     spec = (api.serve_spec(technique="SS", n_workers=2)
             .override("execution.mode", "process")
             .override("execution.stall_timeout", 120.0)
             .override("execution.wall_timeout", 300.0))
+    shipped = []
+    from_model = cluster.ServeTaskRunner.from_model
+
+    def spy(*args, **kwargs):
+        shipped.append(from_model(*args, **kwargs))
+        return shipped[-1]
+
+    monkeypatch.setattr(cluster.ServeTaskRunner, "from_model", spy)
     a = _reqs(Request)
-    st = RDLBServeExecutor(model, params, spec=spec).serve(a)
+    st = RDLBServeExecutor(model, params, spec=spec,
+                           batch_decode=batch_decode,
+                           fused_decode=fused_decode).serve(a)
     assert not st.hung
-    b = _reqs(Request)
-    RDLBServeExecutor(model, params,
-                      spec=api.serve_spec(n_workers=1)).serve(b)
-    for x, y in zip(a, b):
-        assert x.output is not None and np.array_equal(x.output, y.output)
+    assert [(r.batch_decode, r.fused_decode) for r in shipped] \
+        == [(batch_decode, fused_decode)]
+    for ref_spec in (api.serve_spec(n_workers=1),
+                     api.serve_spec(n_workers=2, threaded=True)):
+        b = _reqs(Request)
+        RDLBServeExecutor(model, params, spec=ref_spec).serve(b)
+        for x, y in zip(a, b):
+            assert x.output is not None and np.array_equal(x.output,
+                                                           y.output)
     assert_no_orphans()
+
+
+@pytest.mark.parametrize("batch_decode,fused_decode",
+                         [(True, True), (False, True), (True, False),
+                          (False, False)])
+def test_serve_runner_decodes_with_its_flags(batch_decode, fused_decode,
+                                             tmp_path, monkeypatch):
+    """ServeTaskRunner carries the executor's two flags across the ship
+    and decodes with them in the child (run here in this process):
+    without ``fused_decode`` no FusedGenerator is built and every group
+    goes through the per-token loop, one request a group without
+    ``batch_decode``; the tokens are the executor's."""
+    from repro_torch.runtime import serve_executor
+    model = build_model(CFG)
+    params = model.init(0, device="cpu")
+    reqs = _reqs(Request)
+    runner = cluster.ServeTaskRunner.from_model(
+        model, params, reqs, batch_decode=batch_decode,
+        fused_decode=fused_decode).ship(str(tmp_path))
+    assert runner.params is None and runner.device == "cpu"
+    groups = []
+    loop = serve_executor.greedy_decode_group
+
+    def spy(model, params, decode_step, prompts, max_new):
+        groups.append(prompts.shape[0])
+        return loop(model, params, decode_step, prompts, max_new)
+
+    monkeypatch.setattr(serve_executor, "greedy_decode_group", spy)
+    runner.setup()
+    assert (runner._gen is None) == (not fused_decode)
+    got = runner(list(range(len(reqs))))
+    want = _reqs(Request)
+    RDLBServeExecutor(model, params,
+                      spec=api.serve_spec(n_workers=1)).serve(want)
+    for w in want:
+        np.testing.assert_array_equal(got[w.rid], w.output)
+    if fused_decode:
+        assert groups == []
+    else:
+        # six prompts of one length: one group, or six of one request
+        assert groups == ([6] if batch_decode else [1] * 6)
 
 
 # ------------------------------------------- against the reference's runs

@@ -1,9 +1,11 @@
 """Parts of the port's other model families against the JAX package on
 the CPU: MoE routing and dispatch (capacity drops, top-k ties), the
 chunked ``flash_attend`` with a window or a prefix, the selective scan
-streamed token by token, hymba's meta prefix, and threaded rDLB serving
-of the MoE and hybrid smoke configs through a fail-stop.  The helpers and
-the tolerances are those of tests/test_torch_families.py.
+streamed token by token and its backward's cost, hymba's meta prefix,
+and threaded rDLB serving of the MoE and hybrid smoke configs through a
+fail-stop.  The helpers and the tolerances are those of
+tests/test_torch_families.py; the scan's backward is held to its
+indexed form bit for bit.
 """
 
 import jax
@@ -17,6 +19,7 @@ from repro.models import moe as jmoe
 from repro.models import ssm as jssm
 from repro.runtime.serve_executor import FusedGenerator as JFused
 from repro_torch import api
+from repro_torch.launch.op_analysis import Counter
 from repro_torch.models import attention as tattn
 from repro_torch.models import moe as tmoe
 from repro_torch.models import ssm as tssm
@@ -161,6 +164,56 @@ def test_mamba_streamed_token_by_token_equals_one_pass():
     _close(torch.cat(ys, dim=1), y.numpy(), atol=1e-5, rtol=1e-5)
     _close(st, s.numpy(), atol=1e-5, rtol=1e-5)
     _close(tail, t.numpy(), atol=1e-6, rtol=1e-6)
+
+
+def _scan_inputs(S: int, seed: int = 0) -> list:
+    g = torch.Generator().manual_seed(seed)
+    B, Di, N = 2, 16, 4
+    return [torch.rand(B, S, Di, generator=g),
+            torch.randn(B, S, N, generator=g),
+            torch.randn(B, S, N, generator=g),
+            torch.randn(B, S, Di, generator=g),
+            -torch.rand(Di, N, generator=g),
+            torch.randn(B, Di, N, generator=g)]
+
+
+def _indexed_scan(dt, Bm, Cm, xx, A, h):
+    """The selective scan with each step indexing dA[:, t]: the same
+    arithmetic as ``selective_scan``, with a backward quadratic in S."""
+    dA = torch.exp(dt[..., None] * A)
+    dBx = (dt * xx)[..., None] * Bm[:, :, None, :]
+    hs = []
+    for t in range(dt.shape[1]):
+        h = dA[:, t] * h + dBx[:, t]
+        hs.append(h)
+    return (torch.stack(hs, dim=1) * Cm[:, :, None, :]).sum(dim=-1), h
+
+
+def test_selective_scan_backward_is_linear_in_S():
+    """The scan's counted forward + backward bytes grow at most 4.5x from
+    S = 64 to 4S (the indexed form grows about 15x); its outputs and
+    gradients equal the indexed form's bit for bit."""
+    def scan_and_grads(fn, S):
+        ins = [t.requires_grad_() for t in _scan_inputs(S)]
+        y, h = fn(*ins)
+        (0.5 * y.sum() + (h * h).sum()).backward()
+        return [y, h] + [t.grad for t in ins]
+
+    for S in (1, 37):
+        got = scan_and_grads(tssm.selective_scan, S)
+        want = scan_and_grads(_indexed_scan, S)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), S
+
+    def counted_bytes(S):
+        with Counter() as c:
+            y, _ = tssm.selective_scan(
+                *[t.requires_grad_() for t in _scan_inputs(S)])
+            y.sum().backward()
+        return c.unfused_bytes
+
+    ratio = counted_bytes(256) / counted_bytes(64)
+    assert ratio <= 4.5, ratio
 
 
 def test_hymba_meta_prefill_then_decode_matches_forward():

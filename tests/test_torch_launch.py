@@ -326,3 +326,57 @@ def test_dryrun_cli_writes_records(tmp_path):
     assert olmo["params"] == 1_176_764_416
     assert olmo["cache_bytes"] == 128 * 32768 * 16 * 2 * 16 * 128 * 2 \
         + 16 * 32768 * 4
+
+
+KNOBS = ["--flash-threshold", "512", "--causal-skip", "--attn-bf16",
+         "--parallelism", "dp", "--moe-group", "64", "--remat",
+         "dots_saveable", "--microbatches", "2", "--tag", "knobs"]
+KNOB_OVERRIDES = {"flash_threshold": 512, "flash_causal_skip": True,
+                  "attn_scores_bf16": True, "parallelism": "dp",
+                  "moe_group_size": 64, "remat_policy": "dots_saveable"}
+
+
+def test_dryrun_flags_reach_the_cell(tmp_path, monkeypatch):
+    """The reference's tuning flags (``--mesh`` aside): each reaches the
+    config of every cell's step and its record, ``--microbatches`` the
+    training step, and ``--tag`` names the files."""
+    seen = []
+    train_step, serve_step = dryrun.make_train_step, dryrun.make_serve_step
+
+    def spy_train(cfg, **kw):
+        seen.append((cfg, kw["num_microbatches"]))
+        return train_step(cfg, **kw)
+
+    def spy_serve(cfg):
+        seen.append((cfg, None))
+        return serve_step(cfg)
+
+    monkeypatch.setattr(dryrun, "make_train_step", spy_train)
+    monkeypatch.setattr(dryrun, "make_serve_step", spy_serve)
+    with pytest.raises(SystemExit) as ex:
+        dryrun.main(["--arch", "whisper-tiny", "--shape",
+                     "train_4k,decode_32k", "--out", str(tmp_path)] + KNOBS)
+    assert ex.value.code == 0
+    assert [mb for _, mb in seen] == [2, None]
+    for cfg, _ in seen:
+        for key, val in KNOB_OVERRIDES.items():
+            assert getattr(cfg, key) == val, key
+    for shape in ("train_4k", "decode_32k"):
+        rec = json.loads((tmp_path / f"whisper-tiny__{shape}__knobs.json")
+                         .read_text())
+        assert rec["ok"] is True and rec["overrides"] == KNOB_OVERRIDES
+    assert rec.get("microbatches") is None
+    summary = json.loads((tmp_path / "summary.json").read_text())
+    assert summary[0]["microbatches"] == 2
+
+
+def test_dryrun_microbatches_lower_the_peak():
+    """``--microbatches 2`` halves the rows a training step holds at once:
+    a lower peak than the cell's own count (1 for whisper-tiny), the same
+    state bytes; no override is recorded."""
+    own = dryrun.run_cell("whisper-tiny", "train_4k")
+    two = dryrun.run_cell("whisper-tiny", "train_4k", microbatches=2)
+    assert own["microbatches"] == 1 and two["microbatches"] == 2
+    assert two["peak_step_bytes"] < own["peak_step_bytes"]
+    assert two["params_bytes"] == own["params_bytes"]
+    assert own["overrides"] == two["overrides"] == {}

@@ -16,11 +16,13 @@ import torch
 from repro.configs import get_config as jget_config
 from repro.configs.registry import modality_inputs as jmodality_inputs
 from repro.models import build_model as jbuild
+from repro.models.common import param_count as jparam_count
 from repro_torch import optim
 from repro_torch.configs import (ARCH_IDS, get_config, get_smoke,
                                  modality_inputs, smoke_batch)
 from repro_torch.models import build_model, forward_logits
-from repro_torch.models.common import ParamSpec, tree_leaves
+from repro_torch.models.common import (ParamSpec, param_count,
+                                       tree_leaves)
 from repro_torch.runtime.executor import value_and_grad
 
 
@@ -118,10 +120,6 @@ def _spec_leaves(specs) -> list:
     return [x for k in sorted(specs) for x in _spec_leaves(specs[k])]
 
 
-def param_count(specs) -> int:
-    return sum(int(np.prod(s.shape)) for s in _spec_leaves(specs))
-
-
 def test_paper_config_parameter_counts():
     """Full configs land near their nameplate sizes (the reference's
     ranges)."""
@@ -140,6 +138,7 @@ def test_paper_config_parameter_counts():
     for arch, (lo, hi) in expect.items():
         n = param_count(build_model(get_config(arch)).param_specs())
         assert lo <= n <= hi, f"{arch}: {n / 1e9:.2f}B"
+        assert n == jparam_count(jbuild(jget_config(arch)).param_specs())
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
