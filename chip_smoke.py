@@ -11,11 +11,13 @@ Phases, each fatal when it fails:
      ``src/repro_torch/csrc`` and print the build time and ptxas report
      (registers, shared memory and spills of the wgmma flash_attention,
      the flash_decode, the two wkv6, the mandelbrot and the spin_image
-     kernels on lines of their own);
+     kernels on lines of their own; a spill in a wgmma flash_attention
+     instance fails);
      hold the built ``wkv6_batched_smem`` (ctypes) to the wrapper's
      ``_batched_smem`` at the shapes used; count the HGMMA (wgmma) and
-     UTMALDG (TMA load) instructions in the built flash_attention wgmma
-     kernel (``cuobjdump -sass``), both required;
+     UTMALDG (TMA load) instructions in each (D, Dv) instance of the
+     built flash_attention wgmma kernel (``cuobjdump -sass``), both
+     required in every one of ``WGMMA_DIMS``;
   2. hold each kernel against its plain PyTorch version on the card, at
      the shapes of the main paths, with the tolerance printed, and time
      both: the kernel as a CUDA graph of launches (``ms``), in a profiler
@@ -79,8 +81,9 @@ Phases, each fatal when it fails:
   5. training: flash_attention (output and log-sum-exp, and the variant
      that ran) against its plain version at olmo-1b's training shape (16
      heads, S = 2048, D = 128, bfloat16, causal), a ragged GQA shape (8
-     heads over 2, S = 1000, float32 and bfloat16), non-causal, Dv != D,
-     head dims 64 and 256 shapes, and the gradients through
+     heads over 2, S = 1000, float32 and bfloat16), non-causal, Dv != D
+     (192 / 128: float32 on the fp32 variant, bfloat16 on wgmma), head
+     dims 64 and 256 shapes, and the gradients through
      FlashAttentionFn against autograd through the plain version, then
      timed like the others, with SDPA as its library call; rDLB training
      of olmo-1b at full width and half depth in bfloat16 (global batch 8 x 2048 tokens,
@@ -113,10 +116,14 @@ Phases, each fatal when it fails:
      MLA forward through flash_attention; hymba's (global, then windowed)
      the plain versions' tokens; paligemma-3b and whisper-tiny serve a
      few requests (``FEW_PROMPTS``), flash_decode launching at D = 256
-     (8 heads over one) and D = 64; both attention kernels held and
-     timed at every cache and prefill shape these serving drives launch
-     them at (each prompt's last decode step, with its slot mask),
-     beside their bounds and SDPA; and all ten smoke configs in
+     (8 heads over one) and D = 64, paligemma's flash_attention
+     launches counted per variant (all wgmma); both attention kernels
+     held and timed at every cache and prefill shape these serving
+     drives launch them at (each prompt's last decode step, with its slot
+     mask), beside their bounds and SDPA, flash_attention launched twice
+     for the same bits and, on the wgmma variant, also timed on the fp32
+     variant (paligemma's prefills at D = 256 and MLA's bf16 forward at
+     192 / 128 among them); and all ten smoke configs in
      float32, card against CPU: logits, three decode steps, a loss and
      its gradients (aux and MTP included);
   7. the batched simulator (``core/devicesim``, no kernel: batched
@@ -1389,7 +1396,8 @@ def attention_ops(B: int, H: int, S: int, D: int, Dv: int,
 def compare_attention_kernel(dev) -> dict:
     """flash_attention against its plain version on ``dev`` (output, lse
     and gradients), at olmo-1b's training shape and at ragged, GQA,
-    non-causal and Dv != D shapes; then timed at the training shape."""
+    non-causal, Dv != D and D = 256 shapes (gradients at the bfloat16
+    ones of the wgmma variant); then timed at the training shape."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import dispatch
@@ -1407,7 +1415,9 @@ def compare_attention_kernel(dev) -> dict:
          "wgmma"),
         ("non-causal", 2, 300, 4, 4, 64, 64, False, torch.float32, "fp32"),
         ("dv != d", 1, 257, 4, 1, 192, 128, True, torch.float32, "fp32"),
-        ("dims 256", 1, 130, 2, 2, 256, 256, True, torch.bfloat16, "fp32"),
+        ("dv != d", 1, 257, 4, 1, 192, 128, True, torch.bfloat16, "wgmma"),
+        ("dims 256", 1, 130, 2, 2, 256, 256, True, torch.bfloat16,
+         "wgmma"),
         ("dims 64", 2, 333, 8, 4, 64, 64, True, torch.bfloat16, "wgmma"),
         ("non-causal", 1, 200, 4, 4, 128, 128, False, torch.bfloat16,
          "wgmma"),
@@ -1447,7 +1457,9 @@ def compare_attention_kernel(dev) -> dict:
             fail(f"flash_attention ({label}, {dtype}) differs from its "
                  f"plain version: output {e}, lse {float(d_lse.max())}")
         err = max(err, e)
-        if label in ("olmo-1b training", "ragged gqa"):
+        if label in ("olmo-1b training", "ragged gqa") or (
+                label in ("dv != d", "dims 256")
+                and dtype == torch.bfloat16):
             check_attention_grads(kf, q, k, v, causal, label, dtype, gen)
     # timed: olmo-1b's training shape, one microbatch row
     B, S, KV = 1, TRAIN_SEQ, olmo.n_kv_heads
@@ -1829,9 +1841,10 @@ DECODE_PROMPT, DECODE_NEW = 64, 16
 # deepseek's float32 2-layer copy (layer 0 dense, layer 1 MoE) on the card
 # against the CPU: the same greedy tokens, and the last logits of the
 # forward (its MLA through flash_attention's fp32 variant at D = 192 on
-# the card) and of the prefill within CPU_LOGIT_TOL = (atol, rtol): the
-# card's and the CPU's float32 products sum 2,048- to 10,944-long dot
-# products in other orders.
+# the card, as every float32 input goes; the bfloat16 model's MLA forward
+# takes the wgmma variant) and of the prefill within CPU_LOGIT_TOL =
+# (atol, rtol): the card's and the CPU's float32 products sum 2,048- to
+# 10,944-long dot products in other orders.
 CPU_LOGIT_TOL = (1e-3, 1e-4)
 # The ten smoke configs in float32, card against CPU (SMOKE_TOL): logits
 # 1e-4 + 1e-5 of their size, the loss 1e-5 of it, gradients 1e-4 of each
@@ -1945,16 +1958,23 @@ def drive_few(dev, arch: str) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dispatch.launches()
+    variants = dispatch.variant_launches("flash_attention")
     ok = all(r.output is not None and r.output.shape == (SERVE_NEW,)
              and ((r.output >= 0) & (r.output < cfg.vocab_size)).all()
              for r in reqs)
     print(f"serve,{arch},requests={len(reqs)},prompts="
           f"{[len(r.prompt) for r in reqs]},hung={st.hung},"
           f"wall_s={wall:.4f},head_dim={cfg.head_dim},"
-          f"group={cfg.n_heads // cfg.n_kv_heads},launches={launches}")
+          f"group={cfg.n_heads // cfg.n_kv_heads},launches={launches},"
+          f"flash_attention by variant={variants}")
     if st.hung or not ok:
         fail(f"{arch}: serving returned malformed or missing outputs")
     check_sites(arch, launches, FAMILY_SITES[arch])
+    # paligemma's bf16 prefills at head dim 256 run on the tensor cores
+    if (arch == "paligemma-3b"
+            and variants.get("wgmma", 0) != launches["flash_attention"]):
+        fail(f"{arch}: flash_attention launches by variant {variants}, "
+             f"not all wgmma")
     del model, params, ex
     gc.collect()
     torch.cuda.empty_cache()
@@ -2104,8 +2124,10 @@ def attention_shape(dev, label: str, S: int, H: int, KV: int, D: int,
                     Dv: int, want: str, gen, dt=None) -> dict:
     """flash_attention at one causal shape of this phase's paths (bf16
     unless ``dt`` says otherwise), held to its plain version (phase 2's
-    tolerance for the dtype) and timed beside its bound and SDPA (K/V
-    repeated to H heads)."""
+    tolerance for the dtype), launched again for the same out and lse bit
+    for bit (rDLB's duplicates), and timed beside its bound and SDPA (K/V
+    repeated to H heads); a wgmma shape also times the fp32 variant on
+    the same inputs (``fp32_ms``), the before of its redesign."""
     import torch
     from repro_torch.kernels import dispatch
     from repro_torch.kernels import flash_attention as kf
@@ -2113,8 +2135,12 @@ def attention_shape(dev, label: str, S: int, H: int, KV: int, D: int,
     q = torch.randn((1, S, H, D), generator=gen).to(dev, dt)
     k = torch.randn((1, S, KV, D), generator=gen).to(dev, dt)
     v = torch.randn((1, S, KV, Dv), generator=gen).to(dev, dt)
-    out, _ = kf.flash_attention_forward(q, k, v, causal=True)
+    out, lse = kf.flash_attention_forward(q, k, v, causal=True)
     variant = dispatch.status("flash_attention").get("variant")
+    again = kf.flash_attention_forward(q, k, v, causal=True)
+    if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
+        fail(f"flash_attention ({label}): two launches on the same inputs "
+             f"differ")
     pout, _ = kf.flash_attention_forward_plain(q, k, v, causal=True)
     d = (out.float() - pout.float()).abs()
     if dt == torch.float32:
@@ -2143,8 +2169,13 @@ def attention_shape(dev, label: str, S: int, H: int, KV: int, D: int,
     row = dict(shape=f"{label}: q ({1},{S},{H},{D}), k ({1},{S},{KV},{D}), "
                      f"v Dv={Dv} {name}, causal", variant=variant,
                max_abs_err=e, ms=ms, bound_ms=b, bound_by=by, library_ms=lib)
+    if variant == "wgmma":
+        scale = D ** -0.5
+        row["fp32_ms"] = graph_ms(lambda: kf._attention_cuda(
+            q, k, v, True, scale, variant="fp32"), 20)
     print(f"flash_attention,{label},{name},variant={variant},max_abs_err="
-          f"{e},ms={ms},bound_ms={b} ({by}),sdpa_ms={lib}")
+          f"{e},ms={ms},fp32_ms={row.get('fp32_ms')},bound_ms={b} ({by}),"
+          f"sdpa_ms={lib},repeat=bit-identical")
     return row
 
 
@@ -2246,15 +2277,17 @@ def family_kernel_shapes(dev, rows: dict) -> None:
                             hy.head_dim, hy.head_dim, "wgmma", gen),
             attention_shape(dev, f"paligemma-3b prefill, {p} tokens", p,
                             pg.n_heads, pg.n_kv_heads, pg.head_dim,
-                            pg.head_dim, "fp32", gen)]
+                            pg.head_dim, "wgmma", gen)]
     mla = ds.nope_head_dim + ds.rope_head_dim
-    for S, dt, what in (
-            (SERVE_PROMPTS[0], torch.float32, "the 2-layer check's forward"),
+    for S, dt, what, want in (
+            (SERVE_PROMPTS[0], torch.float32, "the 2-layer check's forward",
+             "fp32"),
             (SERVE_PROMPTS[-1], torch.bfloat16,
-             "forward at the longest prompt, not launched in this run")):
+             "forward at the longest prompt, not launched in this run",
+             "wgmma")):
         att.append(attention_shape(dev, f"deepseek-v2-lite-16b MLA {what}",
                                    S, ds.n_heads, ds.n_heads, mla,
-                                   ds.v_head_dim, "fp32", gen, dt))
+                                   ds.v_head_dim, want, gen, dt))
 
 
 def drive_families(dev, rows: dict) -> None:
@@ -3227,24 +3260,32 @@ def ptxas_entries(log: str) -> list:
 
 
 def sass_counts(build, kernel: str) -> dict:
-    """HGMMA (wgmma) and UTMALDG (TMA load) instructions in the SASS of
-    the built library's functions whose name holds ``kernel``
-    (``cuobjdump -sass``)."""
+    """{function: {"HGMMA": n, "UTMALDG": n}}: wgmma and TMA-load
+    instructions in the SASS of each of the built library's functions
+    whose (mangled) name holds ``kernel`` (``cuobjdump -sass``)."""
     tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
     res = subprocess.run([tool, "-sass", str(build.BUILD_DIR
                                              / build.LIB_NAME)],
                          capture_output=True, text=True, timeout=300)
     if res.returncode != 0:
         fail(f"cuobjdump failed: {res.stderr.strip()[:500]}")
-    counts = {"HGMMA": 0, "UTMALDG": 0}
-    inside = False
+    counts, inside = {}, None
     for line in res.stdout.splitlines():
         if "Function :" in line:
-            inside = kernel in line
-        elif inside:
-            for op in counts:
-                counts[op] += line.count(op)
+            name = line.split("Function :", 1)[1].strip()
+            inside = (counts.setdefault(name, {"HGMMA": 0, "UTMALDG": 0})
+                      if kernel in name else None)
+        elif inside is not None:
+            for op in inside:
+                inside[op] += line.count(op)
     return counts
+
+
+def spill_bytes(spills: str) -> int:
+    """Bytes of spill stores plus loads on a ptxas report line (0 when it
+    names none)."""
+    import re
+    return sum(int(n) for n in re.findall(r"(\d+) bytes spill", spills))
 
 
 def check_wkv6_smem(build) -> None:
@@ -3281,6 +3322,7 @@ def main() -> int:
              f"checkout of the repository")
     sys.path.insert(0, src)
     from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as kf
     t_phase = time.perf_counter()
 
     def phase_done(n: int) -> None:
@@ -3306,17 +3348,28 @@ def main() -> int:
         if "registers" in line or line.startswith("---"):
             print(f"ptxas: {line.strip()}")
     # the redesigned kernels' registers, shared memory and spills
+    wgmma_instances = 0
     for src, name, regs, spills in ptxas_entries(_build.build_log):
         if "wgmma" in name or src in ("flash_decode.cu", "wkv6.cu",
                                       "mandelbrot.cu", "spin_image.cu"):
             print(f"ptxas,{src},{name},{regs},{spills}")
+        # every (D, Dv) instance of the wgmma kernel keeps its O, S and P
+        # in registers: a spill would put them in local memory
+        if "flash_attention_wgmma" in name:
+            wgmma_instances += 1
+            if spill_bytes(spills):
+                fail(f"ptxas spills in {name}: {spills}")
     check_wkv6_smem(_build)
     sass = sass_counts(_build, "flash_attention_wgmma")
-    print(f"sass,flash_attention_wgmma_kernel,HGMMA={sass['HGMMA']},"
-          f"UTMALDG={sass['UTMALDG']}")
-    if not (sass["HGMMA"] > 0 and sass["UTMALDG"] > 0):
-        fail(f"the built flash_attention wgmma kernel lacks HGMMA or "
-             f"UTMALDG instructions: {sass}")
+    for name, c in sass.items():
+        print(f"sass,{name},HGMMA={c['HGMMA']},UTMALDG={c['UTMALDG']}")
+    if (len(sass) != len(kf.WGMMA_DIMS) or wgmma_instances != len(sass)
+            or not all(c["HGMMA"] > 0 and c["UTMALDG"] > 0
+                       for c in sass.values())):
+        fail(f"the built flash_attention wgmma kernel has {len(sass)} "
+             f"instances ({wgmma_instances} in the ptxas report) for "
+             f"{len(kf.WGMMA_DIMS)} head-dim pairs, or one lacks HGMMA "
+             f"or UTMALDG instructions: {sass}")
     dev = torch.device("cuda")
 
     phase_done(1)

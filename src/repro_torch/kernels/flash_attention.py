@@ -42,10 +42,13 @@ Full sequence (site ``flash_attention``; body ``_kernel``):
   Scores and sums are float32 (float64 for float64 inputs on the CPU);
   the output has q's dtype.  The kernel has two variants, chosen by
   :func:`attention_variant` from dtype, head dims and layout:
-  ``"wgmma"`` (bfloat16, D == Dv in {64, 128}, tensors TMA can load:
-  tensor cores, P rounded to bfloat16 before P V, within
-  :func:`bf16_p_bound` of the plain version's float32 P) and ``"fp32"``
-  (everything else: CUDA cores, float32 products, any strides).
+  ``"wgmma"`` (bfloat16, (D, Dv) in :data:`WGMMA_DIMS`, which holds the
+  pairs of the repo's bfloat16 models: 64 and 128 of the dense ones,
+  256 of paligemma, 192 / 128 of MLA; tensors TMA can load: tensor
+  cores, P rounded to bfloat16 before P V, within :func:`bf16_p_bound`
+  of the plain version's float32 P) and ``"fp32"`` (everything else:
+  float32 inputs, other head dims, strides TMA cannot take; CUDA cores,
+  float32 products, any strides).
 """
 
 from __future__ import annotations
@@ -76,6 +79,9 @@ SPLIT_SLOTS = 128
 MAX_SPLITS = 8
 #: full-sequence kernel variants, by their code in the C launcher
 VARIANTS = ("fp32", "wgmma")
+#: (D, Dv) head-dim pairs the wgmma variant takes; the C launcher
+#: (``flash_attention_launch``) refuses any other for it
+WGMMA_DIMS = frozenset({(64, 64), (128, 128), (192, 128), (256, 256)})
 #: query rows per tile of the blocked backward: its score-sized
 #: intermediates hold (H, BWD_TILE, S) floats per batch row
 BWD_TILE = 512
@@ -416,17 +422,20 @@ def _tma_ready(t: torch.Tensor) -> bool:
 def attention_variant(q: torch.Tensor, k: torch.Tensor,
                       v: torch.Tensor) -> str:
     """The full-sequence kernel's variant for these inputs: ``"wgmma"``
-    for bfloat16 with D == Dv in {64, 128} that TMA can load
+    for bfloat16 with (D, Dv) in :data:`WGMMA_DIMS` that TMA can load
     (:func:`_tma_ready`), else ``"fp32"``, which reads through any
     strides.  A choice from the inputs alone, never because something
     failed: the wrapper passes it to the C launcher, which checks it."""
-    D, Dv = q.shape[-1], v.shape[-1]
-    return ("wgmma" if q.dtype == torch.bfloat16 and D == Dv
-            and D in (64, 128) and all(map(_tma_ready, (q, k, v)))
-            else "fp32")
+    return ("wgmma" if q.dtype == torch.bfloat16
+            and (q.shape[-1], v.shape[-1]) in WGMMA_DIMS
+            and all(map(_tma_ready, (q, k, v))) else "fp32")
 
 
-def _attention_cuda(q, k, v, causal: bool, scale: float):
+def _attention_cuda(q, k, v, causal: bool, scale: float,
+                    variant: Optional[str] = None):
+    """Launch the kernel in ``variant`` (default :func:`attention_variant`;
+    another is asked only to time one variant against the other, and
+    the C launcher refuses it where the inputs do not allow it)."""
     if q.dtype not in DTYPE_CODES:
         raise TypeError(f"the CUDA kernel takes float32 or bfloat16, got "
                         f"{q.dtype}")
@@ -442,7 +451,7 @@ def _attention_cuda(q, k, v, causal: bool, scale: float):
     if out.numel() == 0:
         dispatch.record(SITE_ATTN, "cuda")
         return out, lse
-    variant = attention_variant(q, k, v)
+    variant = variant or attention_variant(q, k, v)
     fn = _build.function("flash_attention_launch", _ATTN_ARGTYPES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

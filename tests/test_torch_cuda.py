@@ -415,8 +415,8 @@ def test_flash_attention_kernel_equals_plain(cuda, case, dtype):
     torch.cuda.synchronize()
     assert dispatch.launches("flash_attention") == before + 1
     assert dispatch.status("flash_attention")["path"] == "cuda"
-    tensor_cores = (dtype == torch.bfloat16 and case[4] == case[5]
-                    and case[4] in (64, 128))
+    tensor_cores = (dtype == torch.bfloat16
+                    and (case[4], case[5]) in kf.WGMMA_DIMS)
     assert dispatch.status("flash_attention")["variant"] == (
         "wgmma" if tensor_cores else "fp32")
     want, want_lse = kf.flash_attention_forward_plain(q, k, v,
@@ -465,9 +465,25 @@ def test_flash_attention_misaligned_strides_take_fp32(cuda):
     torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-6)
 
 
+def test_flash_attention_misaligned_strides_take_fp32_at_d256(cuda):
+    """The same at paligemma's head dim: bf16 D = Dv = 256 read out of
+    rows of 257 runs the fp32 variant, within its tolerance."""
+    q = torch.randn((1, 70, 2, 257), device=cuda,
+                    dtype=torch.bfloat16)[..., :256]
+    out, lse = kf.flash_attention_forward(q, q, q)
+    torch.cuda.synchronize()
+    assert dispatch.status("flash_attention")["variant"] == "fp32"
+    want, want_lse = kf.flash_attention_forward_plain(q, q, q)
+    diff = (out.float() - want.float()).abs()
+    assert bool((diff <= 1e-4 + 2.0 ** -7 * want.float().abs()).all())
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-6)
+
+
 def test_flash_attention_duplicates_are_bit_identical(cuda):
     gen = torch.Generator().manual_seed(5)
-    for case in (ATTN_CASES[1], ATTN_CASES[0]):     # wgmma, D = 64 and 128
+    # wgmma at every head-dim pair: (64, 64), (128, 128), (192, 128) and
+    # (256, 256)
+    for case in (ATTN_CASES[1], ATTN_CASES[0], ATTN_CASES[3], ATTN_CASES[4]):
         q, k, v = _attn_inputs(cuda, case, torch.bfloat16, gen)
         a = kf.flash_attention_forward(q, k, v)
         b = kf.flash_attention_forward(q, k, v)
@@ -529,6 +545,30 @@ def test_bf16_training_path_launches_the_wgmma_variant(cuda):
     assert after == before + 2 * cfg.n_layers
     assert torch.isfinite(torch.as_tensor(float(loss)))
     assert all(bool(torch.isfinite(g).all()) for g in tree_leaves(grads))
+
+
+def test_bf16_paligemma_prefill_launches_the_wgmma_variant(cuda):
+    """A bfloat16 paligemma-smoke-width prefill at head dim 256 (8 heads
+    over one KV head, as paligemma-3b's) runs every layer's attention on
+    the wgmma variant, once a layer."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import build_model
+    cfg = get_smoke("paligemma-3b").replace(n_heads=8, d_head=256)
+    assert cfg.head_dim == 256 and cfg.dtype == "bfloat16"
+    model = build_model(cfg)
+    params = model.init(0, device=cuda)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, size=(2, 37))).to(cuda)
+    before = dispatch.variant_launches("flash_attention")
+    with torch.inference_mode():
+        logits, _ = model.prefill(params, model.init_cache(2, 40,
+                                                           device=cuda),
+                                  tokens)
+    torch.cuda.synchronize()
+    after = dispatch.variant_launches("flash_attention")
+    assert after.get("wgmma", 0) == before.get("wgmma", 0) + cfg.n_layers
+    assert after.get("fp32", 0) == before.get("fp32", 0)
+    assert bool(torch.isfinite(logits.float()).all())
 
 
 # ------------------------------------------- the batched simulator on the card

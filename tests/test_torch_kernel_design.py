@@ -10,7 +10,9 @@ Tolerances: the split mirror against ``flash_decode_plain`` within 1e-6
 Pallas kernel in interpret mode within 1e-5, as
 ``tests/test_torch_decode_kernels.py`` holds the plain version.  The
 rounding bound is held with no slack: the float32 differences of
-summation order are about 1e-7 of it.
+summation order are about 1e-7 of it.  The wgmma variant's mirror against
+the JAX full-sequence kernel in interpret mode: within 1e-5 with P in
+float32, within the rounding bound + 1e-5 with P rounded.
 """
 
 import jax.numpy as jnp
@@ -26,18 +28,23 @@ from repro_torch.kernels import flash_attention as kf
 # ------------------------------------------------------ variant choice
 @pytest.mark.parametrize("dtype,D,Dv,variant", [
     (torch.bfloat16, 128, 128, "wgmma"), (torch.bfloat16, 64, 64, "wgmma"),
-    (torch.bfloat16, 256, 256, "fp32"), (torch.bfloat16, 192, 128, "fp32"),
+    (torch.bfloat16, 256, 256, "wgmma"), (torch.bfloat16, 192, 128, "wgmma"),
+    (torch.bfloat16, 256, 128, "fp32"), (torch.bfloat16, 192, 192, "fp32"),
     (torch.bfloat16, 128, 64, "fp32"), (torch.bfloat16, 16, 8, "fp32"),
     (torch.bfloat16, 96, 96, "fp32"), (torch.float32, 128, 128, "fp32"),
-    (torch.float32, 64, 64, "fp32"),
+    (torch.float32, 64, 64, "fp32"), (torch.float32, 256, 256, "fp32"),
+    (torch.float32, 192, 128, "fp32"),
 ])
 def test_attention_variant_choice(dtype, D, Dv, variant):
-    """bfloat16 with D == Dv in {64, 128} takes the tensor cores; float32
+    """bfloat16 with (D, Dv) in ``WGMMA_DIMS`` (the dense models' 64 and
+    128, paligemma's 256, MLA's 192 / 128) takes the tensor cores; float32
     (exact float32 products) and every other head-dim pair the fp32
     kernel."""
     q, k = (torch.zeros((2, 3, 4, D), dtype=dtype) for _ in range(2))
     v = torch.zeros((2, 3, 4, Dv), dtype=dtype)
     assert kf.attention_variant(q, k, v) == variant
+    if dtype == torch.bfloat16:
+        assert ((D, Dv) in kf.WGMMA_DIMS) == (variant == "wgmma")
 
 
 def test_attention_variant_takes_fp32_where_tma_cannot_load():
@@ -68,6 +75,46 @@ def test_size_one_dims_get_strides_tma_takes():
     assert kf._strides(rows) == rows.stride()[:3]
 
 
+@pytest.mark.parametrize("arch", ["paligemma-3b", "deepseek-v2-lite-16b"])
+def test_model_paths_hand_tma_ready_tensors_to_the_wgmma_variant(
+        arch, monkeypatch):
+    """The tensors the models pass to flash_attention at their full head
+    dims take the wgmma variant (on the card): paligemma's prefill views
+    q and k out of one roped (B, S, H + KV, 256) tensor and v from its own
+    projection; MLA's forward concatenates q = [q_nope; q_rope] and
+    k = [k_nope; k_rope] (192) beside v (128).  Strides a TMA load cannot
+    take would send them to the fp32 variant silently.  bf16 on the CPU
+    at narrow widths (the plain version runs; the choice reads only
+    dtype, head dims, base alignment and strides)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    wide = {"paligemma-3b": dict(n_heads=8, d_head=256),
+            "deepseek-v2-lite-16b": dict(nope_head_dim=128, rope_head_dim=64,
+                                         v_head_dim=128)}[arch]
+    cfg = get_smoke(arch).replace(**wide)
+    model = build_model(cfg)
+    params = model.init(0, device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, size=(2, 21)))
+    seen, real = [], ops.flash_attention_gqa
+
+    def capture(q, k, v, **kw):
+        seen.append(((q.shape[-1], v.shape[-1]), q.dtype,
+                     kf.attention_variant(q, k, v)))
+        return real(q, k, v, **kw)
+
+    monkeypatch.setattr(ops, "flash_attention_gqa", capture)
+    with torch.inference_mode():
+        if arch == "paligemma-3b":
+            model.prefill(params, model.init_cache(2, 24, device="cpu"),
+                          tokens)
+        else:
+            model.forward(params, tokens)
+    dims = (256, 256) if arch == "paligemma-3b" else (192, 128)
+    assert seen == [(dims, torch.bfloat16, "wgmma")] * cfg.n_layers
+
+
 def test_dispatch_records_the_variant_and_counts_per_variant():
     site = "variant-test-site"
     dispatch.record(site, "cuda", "wgmma")
@@ -94,9 +141,13 @@ def _tiled_bf16_p(q, k, v, *, causal: bool, bk: int = 64,
     """The wgmma variant's arithmetic on plain ops: over key tiles of
     ``bk``, float32 scores, a running max m, l summed from the float32
     probabilities 2^(x - m) relative to m, and P rounded to bfloat16
-    (``round_p``) before it multiplies V; float32 out (B, S, H, Dv)."""
+    (``round_p``) before it multiplies V; q (B, S, H, D) against k
+    (B, S, KV, D) and v (B, S, KV, Dv), query head h on KV head
+    h // (H // KV) -> float32 out (B, S, H, Dv)."""
     B, S, H, D = q.shape
     scale = D ** -0.5
+    g = H // k.shape[2]
+    k, v = (torch.repeat_interleave(t, g, dim=2) for t in (k, v))
     qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))    # (B, H, S, X)
     m = torch.full((B, H, S, 1), kf.NEG_INF)
     l = torch.zeros((B, H, S, 1))
@@ -117,15 +168,22 @@ def _tiled_bf16_p(q, k, v, *, causal: bool, bk: int = 64,
     return (acc / l).transpose(1, 2)
 
 
+@pytest.mark.parametrize("H,KV,D,Dv", [
+    (16, 16, 128, 128),     # olmo-1b
+    (8, 1, 256, 256),       # paligemma-3b
+    (16, 16, 192, 128),     # deepseek-v2-lite-16b's MLA
+])
 @pytest.mark.parametrize("S,causal", [(192, True), (200, True),
                                       (130, False)])
-def test_bf16_p_rounding_stays_inside_its_bound(S, causal):
-    """At olmo-1b's training width (16 heads of 128) on a short S:
+def test_bf16_p_rounding_stays_inside_its_bound(S, causal, H, KV, D, Dv):
+    """At the head widths of the wgmma variant's models on a short S:
     rounding P to bfloat16 per key tile, relative to the running max as
     the kernel does, moves the output by no more than ``bf16_p_bound``,
     and by something (the term is not vacuous)."""
     rng = np.random.default_rng(S)
-    q, k, v = (_bf16_values(rng, (1, S, 16, 128)) for _ in range(3))
+    q = _bf16_values(rng, (1, S, H, D))
+    k = _bf16_values(rng, (1, S, KV, D))
+    v = _bf16_values(rng, (1, S, KV, Dv))
     want, _ = kf.flash_attention_forward_plain(q, k, v, causal=causal)
     exact = _tiled_bf16_p(q, k, v, causal=causal, round_p=False)
     torch.testing.assert_close(exact, want, atol=1e-5, rtol=0)
@@ -137,6 +195,27 @@ def test_bf16_p_rounding_stays_inside_its_bound(S, causal):
     assert float(diff.max()) > 0.0
     # the bound is twice the worst case of the rounding, not a loose cap
     assert float((diff / bound).max()) <= 0.5
+
+
+@pytest.mark.parametrize("D,Dv", [(192, 128), (256, 256)])
+def test_tiled_bf16_p_matches_the_jax_kernel(D, Dv):
+    """The mirror of the wgmma variant at the head dims it gained, against
+    the JAX Pallas kernel in interpret mode (one head, the reference's
+    (B, S, D) layout, its 64-row blocks): with P kept in float32 within
+    1e-5 (float32 sums in another order), and with P rounded to bfloat16
+    within ``bf16_p_bound`` of it."""
+    rng = np.random.default_rng(D + Dv)
+    S = 192
+    q, k = (_bf16_values(rng, (2, S, 1, D)) for _ in range(2))
+    v = _bf16_values(rng, (2, S, 1, Dv))
+    want = np.asarray(jops.flash_attention(
+        *(jnp.asarray(t[:, :, 0].numpy()) for t in (q, k, v)), causal=True,
+        bq=64, bk=64))
+    exact = _tiled_bf16_p(q, k, v, causal=True, round_p=False)[:, :, 0]
+    np.testing.assert_allclose(exact.numpy(), want, atol=1e-5, rtol=0)
+    got = _tiled_bf16_p(q, k, v, causal=True)[:, :, 0]
+    bound = kf.bf16_p_bound(q, k, v, causal=True)[:, :, 0]
+    assert bool(((got - torch.tensor(want)).abs() <= bound + 1e-5).all())
 
 
 def test_bf16_p_bound_of_a_single_key_is_its_value():
