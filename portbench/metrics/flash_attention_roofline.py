@@ -1,0 +1,7 @@
+"""flash_attention's share of its roofline in the profiled loop (``roofline.share``)."""
+
+from portbench.roofline import share
+
+
+def compute(record):
+    return share(record, "flash_attention")
