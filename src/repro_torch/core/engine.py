@@ -280,7 +280,7 @@ class Engine:
         self.by_worker[wid] = self.by_worker.get(wid, 0) + chunk.size
         return payload
 
-    def _finalize_trace(self, mode: str, clock: str):
+    def _finalize_trace(self, mode: str, clock: str, **meta):
         """Seal the recorder into an immutable Trace (None when off).
         Adaptive decision points are folded in here — the controller
         already timestamps its DecisionRecords on the run's clock."""
@@ -294,7 +294,7 @@ class Engine:
                          detail=f"{d.incumbent}->{d.chosen}")
         return tr.finalize(mode=mode, clock=clock,
                            n_tasks=self.queue.N,
-                           n_workers=len(self.workers))
+                           n_workers=len(self.workers), **meta)
 
     def _hub_snapshot(self) -> Any:
         """Live-telemetry summary when a MetricsHub rode the recorder."""
@@ -530,6 +530,11 @@ class Engine:
         it) is interpreted as WALL seconds from run start: the worker
         thread fail-stops at that instant — mid-chunk it dies holding
         the chunk (never reports), exactly like a killed process.
+
+        With a storing recorder each worker thread's chunk runs under a
+        :class:`core.trace.ChunkContext`, through which the serving
+        executor records its group, prefill and step spans; the trace's
+        ``meta["t0_unix_ns"]`` is the run's zero on the Unix clock.
         """
         queue = self.queue
         # The count-based bound must never undercut the wall-clock one
@@ -538,7 +543,9 @@ class Engine:
         max_polls = (self.max_fruitless_polls if self._fruitless_explicit
                      else math.inf)
         tr = self.trace
+        unix0 = time.time_ns()
         t0 = time.monotonic()
+        t0_unix_ns = (unix0 + time.time_ns()) // 2
         errors: list[BaseException] = []
         if self.adaptive is not None:
             self.adaptive.bind(self)       # may re-plan before threads run
@@ -550,6 +557,8 @@ class Engine:
             last_progress = progress_mark()
             stall_start = None
             fruitless = 0
+            ctx = (trc.ChunkContext(tr, t0, w.wid)
+                   if tr is not None and tr.store else None)
 
             def failed_now() -> bool:
                 if (w.fail_time is not None
@@ -614,7 +623,11 @@ class Engine:
                     w.alive = False   # dies holding the chunk
                     return
                 t_exec0 = time.monotonic()
-                payload = self.backend.execute(chunk, w.wid)
+                if ctx is None:
+                    payload = self.backend.execute(chunk, w.wid)
+                else:
+                    payload = ctx.run(chunk.seq, chunk.start,
+                                      self.backend.execute, chunk, w.wid)
                 if w.sleep_per_task > 0.0:
                     time.sleep(w.sleep_per_task * chunk.size)
                 if failed_now():
@@ -673,4 +686,5 @@ class Engine:
         wall = time.monotonic() - t0
         hung = not queue.done
         return self._stats(math.inf if hung else wall, hung, t_wall=wall,
-                           trace=self._finalize_trace("threaded", "wall"))
+                           trace=self._finalize_trace(
+                               "threaded", "wall", t0_unix_ns=t0_unix_ns))

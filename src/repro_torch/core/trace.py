@@ -14,6 +14,11 @@ segments) that every driver emits through one :class:`TraceRecorder`:
   * the vectorized fast-forward (``core.fastpath``) — whole windows
     collapse into per-worker :data:`EV_FF_SPAN` bulk segments, so
     tracing never forces the scalar loop;
+  * the serving executor (``runtime.serve_executor``), inside a threaded
+    run's chunk — request-group, prefill and decode-step spans below the
+    engine's :data:`EV_EXEC`, found through the thread's
+    :func:`current` chunk context (set by ``Engine.run_threaded`` only
+    when a storing recorder exists);
   * the process cluster (``repro.cluster``) — the master records its
     transactions, each worker records its executions locally and ships
     them over the existing AF_UNIX transport at report/teardown time,
@@ -41,7 +46,11 @@ from:
   * time-sliced metrics: ``utilization()``, ``queue_depth()``,
     ``chunk_sizes()``, ``overhead_decomposition()``,
     ``dispatch_latency()`` (per-transaction p50/p99 — replacing the
-    wall-clock-delta estimate ``benchmarks/fig_cluster.py`` used).
+    wall-clock-delta estimate ``benchmarks/fig_cluster.py`` used);
+  * ``executor_spans()``, ``first_served()`` and ``unix_spans()`` read
+    the executor's spans: their walls and thread CPU, each request's
+    first finished group, and the spans on ``torch.profiler``'s clock
+    (a threaded trace's ``meta["t0_unix_ns"]`` is its zero in Unix ns).
 """
 
 from __future__ import annotations
@@ -49,6 +58,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import threading
+import time
 from typing import Any, Optional
 
 import numpy as np
@@ -56,7 +66,8 @@ import numpy as np
 __all__ = [
     "EV_ASSIGN", "EV_REISSUE", "EV_EXEC", "EV_REPORT", "EV_COMMIT",
     "EV_DEATH", "EV_FREEZE", "EV_THAW", "EV_CHAOS", "EV_DECISION",
-    "EV_FF_SPAN", "EVENT_NAMES", "TraceRecorder", "Trace",
+    "EV_FF_SPAN", "EV_GROUP", "EV_PREFILL", "EV_STEP", "EVENT_NAMES",
+    "SPAN_KINDS", "ChunkContext", "current", "TraceRecorder", "Trace",
     "to_chrome", "save_chrome", "load_trace", "summarize", "diff",
 ]
 
@@ -97,11 +108,30 @@ TRACE_VERSION = 1
 #                size = tasks assigned, start = tasks bulk-FINISHED
 #                inside the window (the in-flight round reports through
 #                the scalar tail as ordinary EV_REPORTs).
+#
+# Executor spans (threaded runs only, emitted inside ``wid``'s EV_EXEC of
+# the same ``seq``): t = span start, dt = wall seconds, start = the
+# group's first request id, aux = the thread's CPU microseconds over the
+# span (``time.thread_time_ns``).  No span synchronises with the device,
+# so a step's wall is the host's dispatch of that step.
+#   EV_GROUP     one request group's decode (``decode_request_groups``):
+#                size = real rows; detail = the JSON rid list when the
+#                group has several rows.
+#   EV_PREFILL   ``FusedGenerator``'s prefill (or its prompt walk through
+#                ``decode_step``): size = padded rows x prompt length.
+#   EV_STEP      one iteration of ``FusedGenerator``'s decode loop
+#                (decode_step, argmax, the token's write): size = padded
+#                rows.
 (EV_ASSIGN, EV_REISSUE, EV_EXEC, EV_REPORT, EV_COMMIT, EV_DEATH,
- EV_FREEZE, EV_THAW, EV_CHAOS, EV_DECISION, EV_FF_SPAN) = range(11)
+ EV_FREEZE, EV_THAW, EV_CHAOS, EV_DECISION, EV_FF_SPAN,
+ EV_GROUP, EV_PREFILL, EV_STEP) = range(14)
 
 EVENT_NAMES = ("assign", "reissue", "exec", "report", "commit", "death",
-               "freeze", "thaw", "chaos", "decision", "ff_span")
+               "freeze", "thaw", "chaos", "decision", "ff_span",
+               "group", "prefill", "step")
+
+#: the executor's span kinds (below the engine's EV_EXEC)
+SPAN_KINDS = (EV_GROUP, EV_PREFILL, EV_STEP)
 
 #: rows per sealed columnar block
 CHUNK_EVENTS = 1 << 16
@@ -109,6 +139,59 @@ CHUNK_EVENTS = 1 << 16
 _COLS = ("kind", "t", "wid", "seq", "start", "size", "aux", "dt")
 _DTYPES = dict(kind=np.int8, t=np.float64, wid=np.int32, seq=np.int64,
                start=np.int64, size=np.int64, aux=np.int64, dt=np.float64)
+
+
+class ChunkContext:
+    """The chunk a replica thread executes, for the spans below it.
+
+    ``Engine.run_threaded`` keeps one per worker thread when a storing
+    recorder exists and makes it the thread's :func:`current` around each
+    ``backend.execute``; the executor reads it once per call and holds
+    ``None`` otherwise, so an untraced step pays one identity test.
+    ``rid`` is the request the next spans belong to (the chunk's first
+    task until the executor names a group's first request).
+    """
+
+    __slots__ = ("recorder", "t0", "wid", "seq", "rid")
+
+    def __init__(self, recorder: "TraceRecorder", t0: float,
+                 wid: int) -> None:
+        self.recorder, self.t0, self.wid = recorder, t0, wid
+        self.seq = self.rid = -1
+
+    def run(self, seq: int, rid: int, fn, *args):
+        """``fn(*args)`` with this context current, for chunk ``seq``."""
+        self.seq, self.rid = seq, rid
+        _local.ctx = self
+        try:
+            return fn(*args)
+        finally:
+            _local.ctx = None
+
+    @staticmethod
+    def now() -> tuple:
+        """(monotonic seconds, thread CPU ns): a span's opening mark."""
+        return time.monotonic(), time.thread_time_ns()
+
+    def span(self, kind: int, mark: tuple, size: int,
+             detail: Optional[str] = None) -> tuple:
+        """Record a span of ``kind`` from ``mark`` (``now()``) to now;
+        returns the closing mark, so spans can follow back to back."""
+        end = self.now()
+        self.recorder.event(kind, mark[0] - self.t0, self.wid, self.seq,
+                            self.rid, size,
+                            aux=(end[1] - mark[1]) // 1000,
+                            dt=end[0] - mark[0], detail=detail)
+        return end
+
+
+_local = threading.local()
+
+
+def current() -> Optional[ChunkContext]:
+    """This thread's chunk context, or None (no storing recorder, not in
+    a threaded run's chunk)."""
+    return getattr(_local, "ctx", None)
 
 
 class TraceRecorder:
@@ -428,6 +511,51 @@ class Trace:
                     mean=float(lat.mean()),
                     max=float(lat.max()))
 
+    # ------------------------------------------------- executor spans
+    def executor_spans(self) -> dict:
+        """Per executor span kind present: ``{name: {n, wall_s, cpu_s,
+        mean_wall_s}}``, walls and thread CPU summed over the spans."""
+        out = {}
+        for k in SPAN_KINDS:
+            m = self.kind == k
+            n = int(m.sum())
+            if n:
+                wall = float(self.dt[m].sum())
+                out[EVENT_NAMES[k]] = dict(
+                    n=n, wall_s=wall, cpu_s=float(self.aux[m].sum()) / 1e6,
+                    mean_wall_s=wall / n)
+        return out
+
+    def group_rids(self, i: int) -> list:
+        """Request ids of the EV_GROUP row ``i``."""
+        d = self.details.get(int(i))
+        return json.loads(d) if d else [int(self.start[i])]
+
+    def first_served(self) -> dict:
+        """rid -> (start, end) of the first EV_GROUP span to finish
+        serving it, on the trace's clock."""
+        out: dict = {}
+        for i in np.flatnonzero(self.kind == EV_GROUP):
+            t, end = float(self.t[i]), float(self.t[i] + self.dt[i])
+            for rid in self.group_rids(i):
+                if rid not in out or end < out[rid][1]:
+                    out[rid] = (t, end)
+        return out
+
+    def unix_spans(self) -> list:
+        """(start_ns, end_ns, name) of the executor spans on the Unix
+        clock of ``torch.profiler``'s events (``meta["t0_unix_ns"]`` +
+        engine seconds); empty when the trace has no such zero."""
+        t0 = self.meta.get("t0_unix_ns")
+        if t0 is None:
+            return []
+        m = np.isin(self.kind, SPAN_KINDS)
+        a = int(t0) + np.round(self.t[m] * 1e9).astype(np.int64)
+        b = int(t0) + np.round((self.t[m] + self.dt[m]) * 1e9).astype(
+            np.int64)
+        return [(int(x), int(y), EVENT_NAMES[int(k)])
+                for x, y, k in zip(a, b, self.kind[m])]
+
     # ------------------------------------------------------ serialization
     def to_dict(self) -> dict:
         ints = dict(kind="kind", wid="wid", seq="seq", start="start",
@@ -471,9 +599,12 @@ def to_chrome(trace: Trace) -> dict:
     death/freeze/chaos instants; the master lane carries assign
     transactions (dispatch latency as the slice duration), report
     instants, adaptive decisions, and fast-forward bulk segments are
-    drawn in their worker's lane.  Timestamps are microseconds: virtual
-    seconds × 1e6 for virtual-time runs, wall seconds × 1e6 otherwise
-    (the ``clock`` meta key records which).
+    drawn in their worker's lane, as are the executor's group, prefill
+    and step spans (category ``model``), nested in their chunk.
+    Timestamps are microseconds: virtual seconds × 1e6 for virtual-time
+    runs, wall seconds × 1e6 otherwise (the ``clock`` meta key records
+    which); a threaded run's ``otherData.t0_unix_ns`` is its zero on the
+    Unix clock, to line it up with a ``torch.profiler`` export.
 
     The full raw trace rides along under the top-level ``"repro"`` key
     (Perfetto ignores unknown keys), so an exported file is also a
@@ -571,11 +702,21 @@ def to_chrome(trace: Trace) -> dict:
                         "ts": t, "s": "t", "cat": "master",
                         "name": f"commit {seq} ({int(trace.aux[i])})",
                         "args": {"seq": seq, "newly": int(trace.aux[i])}})
+        elif k in SPAN_KINDS:
+            rid = int(trace.start[i])
+            args = {"seq": seq, "rid": rid, "rows": int(trace.size[i]),
+                    "cpu_us": int(trace.aux[i])}
+            if k == EV_GROUP:
+                args["rids"] = trace.group_rids(i)
+            evs.append({"ph": "X", "pid": pid, "tid": _tid(w), "ts": t,
+                        "dur": float(trace.dt[i]) * us, "cat": "model",
+                        "name": f"{EVENT_NAMES[k]} r{rid}", "args": args})
+    other = {"source": "repro flight recorder", "clock": clock,
+             "mode": meta.get("mode", "")}
+    if "t0_unix_ns" in meta:
+        other["t0_unix_ns"] = meta["t0_unix_ns"]
     return {"traceEvents": evs, "displayTimeUnit": "ms",
-            "otherData": {"source": "repro flight recorder",
-                          "clock": clock,
-                          "mode": meta.get("mode", "")},
-            "repro": trace.to_dict()}
+            "otherData": other, "repro": trace.to_dict()}
 
 
 def save_chrome(trace: Trace, path) -> None:
@@ -634,6 +775,10 @@ def summarize(trace: Trace) -> str:
                if int(i) in trace.details else ""))
     if len(deaths) > 20:
         lines.append(f"chaos: ... {len(deaths) - 20} more")
+    for name, v in trace.executor_spans().items():
+        lines.append(f"span {name}: n={v['n']} "
+                     f"mean_wall={v['mean_wall_s']:.6f}s "
+                     f"cpu/wall={v['cpu_s'] / max(v['wall_s'], 1e-12):.3f}")
     return "\n".join(lines)
 
 

@@ -30,7 +30,8 @@ import math
 from typing import Optional
 
 from repro_torch.core.trace import (
-    EV_ASSIGN, EV_DEATH, EV_EXEC, EV_FF_SPAN, EV_REISSUE, EV_REPORT,
+    EV_ASSIGN, EV_DEATH, EV_EXEC, EV_FF_SPAN, EV_GROUP, EV_REISSUE,
+    EV_REPORT,
 )
 
 __all__ = ["Welford", "P2Quantile", "EWMA", "MetricsHub", "run_telemetry"]
@@ -234,6 +235,8 @@ class MetricsHub:
     # ------------------------------------------------------------ ingest
     def observe(self, kind: int, t: float, wid: int, seq: int,
                 start: int, size: int, aux: int, dt: float) -> None:
+        if kind >= EV_GROUP:
+            return              # the executor's spans: not engine events
         self.n_events += 1
         if t < self._t_lo:
             self._t_lo = t

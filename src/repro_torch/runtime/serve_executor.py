@@ -28,17 +28,25 @@ a fixed order, so duplicates give the same tokens bit for bit).
     from its config and the shipped weights and decoding through the same
     :func:`decode_request_groups` with the executor's two flags, so
     tokens are identical across modes.
+  * SPANS: inside a traced threaded run (``ExecutionSpec.trace``) the
+    engine makes the replica's chunk the thread's
+    :func:`repro_torch.core.trace.current` context, and each request
+    group, prefill and decode step lands on the engine's flight recorder
+    as an EV_GROUP / EV_PREFILL / EV_STEP row with its wall and thread CPU
+    time; no span synchronises with the device.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import api
+from repro_torch.core import trace
 from repro_torch.models.common import first_tensor
 from repro_torch.runtime.backends import ServeBackend
 
@@ -124,6 +132,8 @@ class FusedGenerator:
     Token-identical to ``greedy_decode_group`` and to the reference's
     ``FusedGenerator`` on float32 configs (tests/test_torch_serve.py).
     No CUDA graph yet: every step launches its kernels from Python.
+    Under a chunk context (:func:`repro_torch.core.trace.current`) the
+    prefill and each step of 3. are recorded as spans.
     """
 
     def __init__(self, model):
@@ -136,24 +146,34 @@ class FusedGenerator:
         model = self.model
         dev = _device(params)
         buf = _padded(np.asarray(prompts, dtype=np.int32))
+        rows = buf.shape[0]
+        ctx = trace.current()
         with torch.inference_mode():
-            cache = model.init_cache(buf.shape[0], S + max_new, device=dev)
+            cache = model.init_cache(rows, S + max_new, device=dev)
             tokens = torch.from_numpy(buf).to(dev)
+            if ctx is not None:
+                mark = ctx.now()
             if hasattr(model, "prefill"):
                 logits, cache = model.prefill(params, cache, tokens)
             else:
                 for pos in range(S):
                     logits, cache = model.decode_step(
                         params, cache, tokens[:, pos:pos + 1], pos)
-            out = torch.empty((buf.shape[0], max_new), dtype=torch.int32,
+            if ctx is not None:
+                ctx.span(trace.EV_PREFILL, mark, rows * S)
+            out = torch.empty((rows, max_new), dtype=torch.int32,
                               device=dev)
             tok = torch.argmax(logits[:, -1, :], dim=-1)
             out[:, 0] = tok
+            if ctx is not None:
+                mark = ctx.now()
             for i in range(1, max_new):
                 logits, cache = model.decode_step(params, cache,
                                                   tok[:, None], S + i - 1)
                 tok = torch.argmax(logits[:, -1, :], dim=-1)
                 out[:, i] = tok
+                if ctx is not None:       # steps follow back to back
+                    mark = ctx.span(trace.EV_STEP, mark, rows)
             return out.cpu().numpy()[:B]
 
 
@@ -168,22 +188,33 @@ def decode_request_groups(model, params, decode_step: Callable, reqs: list,
     it every request is a group of one.  With a ``generator`` a group
     decodes device-resident (:class:`FusedGenerator`); otherwise through
     the per-token :func:`greedy_decode_group` loop over ``decode_step``
-    (the model's own: the cache is written in place)."""
-    def decode_group(prompts: np.ndarray, max_new: int) -> np.ndarray:
-        if generator is not None:
-            return generator(params, prompts, max_new)
-        return greedy_decode_group(model, params, decode_step, prompts,
-                                   max_new)
-    if not batch_decode:
-        return {r.rid: decode_group(r.prompt[None, :], r.max_new_tokens)[0]
-                for r in reqs}
-    groups: dict[tuple, list] = {}
-    for r in reqs:
-        groups.setdefault((len(r.prompt), r.max_new_tokens), []).append(r)
+    (the model's own: the cache is written in place).  Under a chunk
+    context each group's decode is recorded as an EV_GROUP span."""
+    if batch_decode:
+        by_shape: dict[tuple, list] = {}
+        for r in reqs:
+            by_shape.setdefault((len(r.prompt), r.max_new_tokens),
+                                []).append(r)
+        groups = list(by_shape.values())
+    else:
+        groups = [[r] for r in reqs]
+    ctx = trace.current()
     out: dict[int, np.ndarray] = {}
-    for (_, max_new), rs in groups.items():
+    for rs in groups:
         prompts = np.stack([r.prompt for r in rs]).astype(np.int32)
-        for r, t in zip(rs, decode_group(prompts, max_new)):
+        max_new = rs[0].max_new_tokens
+        if ctx is not None:
+            ctx.rid = rs[0].rid
+            mark = ctx.now()
+        if generator is not None:
+            toks = generator(params, prompts, max_new)
+        else:
+            toks = greedy_decode_group(model, params, decode_step, prompts,
+                                       max_new)
+        if ctx is not None:
+            ctx.span(trace.EV_GROUP, mark, len(rs), detail=json.dumps(
+                [r.rid for r in rs]) if len(rs) > 1 else None)
+        for r, t in zip(rs, toks):
             out[r.rid] = t
     return out
 

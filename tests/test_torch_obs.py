@@ -174,3 +174,38 @@ def test_cli_trace_calibrate_and_emit_json(tmp_path):
               api.RunSpec.load(cal).cluster.worker_specs()]
     assert speeds == pytest.approx([1.0, 0.5, 1.0], rel=1e-6)
     assert cli.main(["trace", "calibrate", str(tr)]) == 2   # no --spec
+
+
+def test_cli_trace_summarize_prints_executor_spans(tmp_path, capsys):
+    """``trace summarize`` through the port's CLI: on a reference trace
+    (no executor spans) the reference's digest; with a serving chunk's
+    group, prefill and step rows added, the same engine lines and one
+    line a span kind with its count and mean wall."""
+    jspec = _spec(japi, 3, "virtual", metrics=False)
+    tr, jtr = _saved_traces(tmp_path, jspec, _task_times(60))
+    assert cli.main(["trace", "summarize",
+                     str(tmp_path / "run.trace.json")]) == 0
+    assert capsys.readouterr().out.strip() == jtrace.summarize(jtr)
+    rows = [tuple(getattr(tr, c)[i].item() for c in trace._COLS)
+            for i in range(len(tr))]
+    rows += [(trace.EV_GROUP, 0.01, 0, 1, 4, 2, 30000, 0.04, "[4, 5]"),
+             (trace.EV_PREFILL, 0.011, 0, 1, 4, 2 * 6, 9000, 0.01),
+             (trace.EV_STEP, 0.021, 0, 1, 4, 2, 5000, 0.012),
+             (trace.EV_STEP, 0.033, 0, 1, 4, 2, 5000, 0.014)]
+    rec = trace.TraceRecorder(meta=dict(tr.meta, t0_unix_ns=10 ** 18))
+    rec.merge_raw(rows)
+    path = tmp_path / "spans.trace.json"
+    trace.save_chrome(rec.finalize(), path)
+    assert cli.main(["trace", "summarize", str(path)]) == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    want = jtrace.summarize(jtr).splitlines()
+    assert out[1:len(want)] == want[1:]
+    assert out[len(want):] == [
+        "span group: n=1 mean_wall=0.040000s cpu/wall=0.750",
+        "span prefill: n=1 mean_wall=0.010000s cpu/wall=0.900",
+        "span step: n=2 mean_wall=0.013000s cpu/wall=0.385"]
+    back = trace.load_trace(path)
+    assert back.group_rids(int(np.flatnonzero(
+        back.kind == trace.EV_GROUP)[0])) == [4, 5]
+    assert back.unix_spans()[0] == (10 ** 18 + 10 ** 7,
+                                    10 ** 18 + 5 * 10 ** 7, "group")
