@@ -3030,23 +3030,44 @@ class ModelCalls:
 
 
 def exec_launch_problems(sites, n_layers: int, fused: bool, calls: dict,
-                         launches: dict) -> list:
+                         launches: dict, *, graphed: bool = False) -> list:
     """What is wrong with one run's launches, from the model calls it
     made: each layer launches the prefill site once a prefill call and
     the decode site once a decode step, nothing else launches, the loop
-    modes call no prefill and every mode decodes."""
+    modes call no prefill and every mode decodes.  A loop mode runs one
+    decode step a ``decode_step`` call; a fused mode runs SERVE_NEW - 1
+    a prefill call (a group, every request asking for SERVE_NEW tokens)
+    and calls ``decode_step`` for each of them, or, where its groups
+    replay a CUDA graph of the step (``graphed``), for two (step 1 and
+    the capture)."""
     problems = []
     if (calls["prefill"] > 0) != fused:
         problems.append(f"{calls['prefill']} prefill calls")
-    if calls["decode_step"] <= 0:
+    steps = calls["decode_step"]
+    if fused:
+        steps = calls["prefill"] * (SERVE_NEW - 1)
+        want_calls = calls["prefill"] * (2 if graphed else SERVE_NEW - 1)
+        if calls["decode_step"] != want_calls:
+            problems.append(f"{calls['decode_step']} decode_step calls, "
+                            f"expected {want_calls}")
+    if steps <= 0:
         problems.append("no decode step")
     want = {sites[0]: n_layers * calls["prefill"],
-            sites[1]: n_layers * calls["decode_step"]}
+            sites[1]: n_layers * steps}
     want = {k: v for k, v in want.items() if v}
     got = {k: v for k, v in launches.items() if v}
     if got != want:
         problems.append(f"launches {got}, expected {want}")
     return problems
+
+
+def exec_graphed(model, params) -> bool:
+    """Whether the fused modes' groups of SERVE_NEW tokens replay a CUDA
+    graph of the model's decode step where its params lie."""
+    from repro_torch.models.common import first_tensor
+    from repro_torch.runtime.serve_executor import FusedGenerator
+    return FusedGenerator(model).graphed(first_tensor(params).device,
+                                         SERVE_NEW - 1)
 
 
 def exec_serve(ex, reqs, calls: ModelCalls, **kw) -> tuple:
@@ -3110,8 +3131,9 @@ def exec_mode(model, params, calls: ModelCalls, mode, sites) -> dict:
               f"calls={n},launches={launches}", flush=True)
         if st.hung:
             fail(f"{cfg.name} {label}: the run hung")
-        problems = exec_launch_problems(sites, cfg.n_layers, mode[1], n,
-                                        launches)
+        problems = exec_launch_problems(
+            sites, cfg.n_layers, mode[1], n, launches,
+            graphed=exec_graphed(model, params))
         if problems:
             fail(f"{cfg.name} {label}: {problems}")
         if failing and (st.n_duplicates < 1 or 1 not in ex.dead):
@@ -3193,8 +3215,9 @@ def exec_cross_mode(dev, arch: str) -> dict:
                                spec=exec_spec(EXEC_CHECK_WORKERS),
                                batch_decode=mode[0], fused_decode=mode[1])
         st, wall, launches, n = exec_serve(ex, reqs, calls)
-        problems = exec_launch_problems(EXEC_SITES[arch], cfg.n_layers,
-                                        mode[1], n, launches)
+        problems = exec_launch_problems(
+            EXEC_SITES[arch], cfg.n_layers, mode[1], n, launches,
+            graphed=exec_graphed(model, params))
         if st.hung or problems:
             fail(f"{arch} float32 {exec_label(mode)}: hung={st.hung} "
                  f"{problems}")

@@ -20,8 +20,11 @@ and prints, as the last line, one JSON object with
     whose gap middle lies in a prefill or step span of any thread, the
     spans laid on the profiler's clock by ``meta["t0_unix_ns"]``), the
     step spans' thread CPU over their wall, the least and largest share
-    of a group's wall that its prefill and steps cover, and the ms of a
-    group before its prefill and after its last span;
+    of a group's wall that its prefill, steps and capture cover, and the
+    ms of a group before its prefill and after its last span;
+    graph_step_share (the share of decode steps that replayed a CUDA
+    graph: the ``EV_GRAPH`` rows' sizes over the ``EV_STEP`` rows) and
+    capture_ms (mean ``EV_GRAPH`` wall: capture and instantiation);
   * ``harness``: the run's own metrics (``decode_step_ms`` among them),
     its idle-gap breakdown and the share of it charged to the harness's
     decode-step and prefill labels.
@@ -39,8 +42,10 @@ import numpy as np
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 
-#: the program's span names -> the harness's span kinds (profiling.LABELS)
-KINDS = {"step": "decode_step", "prefill": "prefill", "group": "group"}
+#: the program's span names -> the harness's span kinds (profiling.LABELS);
+#: a graph's capture is host work of the decode loop
+KINDS = {"step": "decode_step", "graph": "decode_step", "prefill": "prefill",
+         "group": "group"}
 
 
 def step_share(gaps: dict) -> float | None:
@@ -81,14 +86,19 @@ def span_readings(traces: list, dev: list | None, sites) -> dict:
             inner = np.flatnonzero(
                 (t.wid == t.wid[g]) & (t.seq == t.seq[g])
                 & (t.start == t.start[g])
-                & np.isin(t.kind, (trc.EV_PREFILL, trc.EV_STEP)))
+                & np.isin(t.kind, (trc.EV_PREFILL, trc.EV_STEP,
+                                   trc.EV_GRAPH)))
             cover.append(float(t.dt[inner].sum() / t.dt[g]))
             if len(inner):
                 before.append(1e3 * float(t.t[inner].min() - t.t[g]))
                 after.append(1e3 * float(t.t[g] + t.dt[g]
                                          - (t.t + t.dt)[inner].max()))
     least = int(np.argmin(cover)) if cover else None
+    n_steps = int(sum((t.kind == trc.EV_STEP).sum() for t in traces))
+    replayed = int(sum(t.size[t.kind == trc.EV_GRAPH].sum() for t in traces))
     out = dict(step_span_ms=mean_ms(trc.EV_STEP),
+               graph_step_share=replayed / n_steps if n_steps else None,
+               capture_ms=mean_ms(trc.EV_GRAPH),
                prefill_span_ms=mean_ms(trc.EV_PREFILL),
                host_cpu_share=100.0 * cpu / wall if wall else None,
                tail_wait_share=(100.0 * float(start[tail].sum())
@@ -106,8 +116,7 @@ def span_readings(traces: list, dev: list | None, sites) -> dict:
                group_after_ms=[float(np.mean(after)), max(after),
                                after[least]] if after else None,
                n_groups=len(cover), n_requests=len(served),
-               n_steps=int(sum((t.kind == trc.EV_STEP).sum()
-                               for t in traces)))
+               n_steps=n_steps)
     if dev:
         spans = [(a, b, KINDS[k]) for a, b, k in traces[0].unix_spans()]
         s = profiling.summarize(dev, spans, sites)

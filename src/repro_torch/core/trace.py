@@ -15,8 +15,8 @@ segments) that every driver emits through one :class:`TraceRecorder`:
     collapse into per-worker :data:`EV_FF_SPAN` bulk segments, so
     tracing never forces the scalar loop;
   * the serving executor (``runtime.serve_executor``), inside a threaded
-    run's chunk — request-group, prefill and decode-step spans below the
-    engine's :data:`EV_EXEC`, found through the thread's
+    run's chunk — request-group, prefill, decode-step and graph-capture
+    spans below the engine's :data:`EV_EXEC`, found through the thread's
     :func:`current` chunk context (set by ``Engine.run_threaded`` only
     when a storing recorder exists);
   * the process cluster (``repro.cluster``) — the master records its
@@ -66,7 +66,8 @@ import numpy as np
 __all__ = [
     "EV_ASSIGN", "EV_REISSUE", "EV_EXEC", "EV_REPORT", "EV_COMMIT",
     "EV_DEATH", "EV_FREEZE", "EV_THAW", "EV_CHAOS", "EV_DECISION",
-    "EV_FF_SPAN", "EV_GROUP", "EV_PREFILL", "EV_STEP", "EVENT_NAMES",
+    "EV_FF_SPAN", "EV_GROUP", "EV_PREFILL", "EV_STEP", "EV_GRAPH",
+    "EVENT_NAMES",
     "SPAN_KINDS", "ChunkContext", "current", "TraceRecorder", "Trace",
     "to_chrome", "save_chrome", "load_trace", "summarize", "diff",
 ]
@@ -120,18 +121,22 @@ TRACE_VERSION = 1
 #   EV_PREFILL   ``FusedGenerator``'s prefill (or its prompt walk through
 #                ``decode_step``): size = padded rows x prompt length.
 #   EV_STEP      one iteration of ``FusedGenerator``'s decode loop
-#                (decode_step, argmax, the token's write): size = padded
-#                rows.
+#                (decode_step, argmax, the token's write; or a replay of
+#                the group's CUDA graph of them): size = padded rows.
+#   EV_GRAPH     ``FusedGenerator``'s capture of a group's decode step
+#                into a CUDA graph, instantiation included: size = the
+#                steps that replay it, so sum(size) / count(EV_STEP) is
+#                the share of steps replayed.
 (EV_ASSIGN, EV_REISSUE, EV_EXEC, EV_REPORT, EV_COMMIT, EV_DEATH,
  EV_FREEZE, EV_THAW, EV_CHAOS, EV_DECISION, EV_FF_SPAN,
- EV_GROUP, EV_PREFILL, EV_STEP) = range(14)
+ EV_GROUP, EV_PREFILL, EV_STEP, EV_GRAPH) = range(15)
 
 EVENT_NAMES = ("assign", "reissue", "exec", "report", "commit", "death",
                "freeze", "thaw", "chaos", "decision", "ff_span",
-               "group", "prefill", "step")
+               "group", "prefill", "step", "graph")
 
 #: the executor's span kinds (below the engine's EV_EXEC)
-SPAN_KINDS = (EV_GROUP, EV_PREFILL, EV_STEP)
+SPAN_KINDS = (EV_GROUP, EV_PREFILL, EV_STEP, EV_GRAPH)
 
 #: rows per sealed columnar block
 CHUNK_EVENTS = 1 << 16

@@ -10,10 +10,16 @@ and the launch counts let a run show that its main path went through
 the kernels.  A site with more than one kernel (flash_attention:
 "wgmma" and "fp32") also records which variant ran, and counts launches
 per variant.
+
+A launch made while its thread captures a CUDA graph runs nothing: it is
+counted into the thread's :class:`Tally` (:func:`capturing`), and the
+graph's owner adds the tally to the counts once per replay, so the
+counts stay the launches that ran, graphed or not.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 
 PATHS = ("cuda", "torch")
@@ -25,6 +31,34 @@ _lock = threading.Lock()
 _STATUS: dict[str, dict] = {}
 _LAUNCHES: dict[str, int] = {}
 _VARIANTS: dict[str, dict[str, int]] = {}
+_local = threading.local()
+
+
+class Tally:
+    """The launches a thread counted while it captured one CUDA graph:
+    ``{(site, variant): n}``."""
+
+    def __init__(self) -> None:
+        self.counts: dict[tuple, int] = {}
+
+    def replayed(self) -> None:
+        """Add the captured launches to the counts: one replay ran."""
+        with _lock:
+            for (site, variant), n in self.counts.items():
+                _add(site, variant, n)
+
+
+@contextlib.contextmanager
+def capturing():
+    """While inside, this thread's launches are counted into the yielded
+    :class:`Tally` instead of the counts (the launches are being
+    captured, not run); paths are recorded as always."""
+    tally = Tally()
+    _local.tally = tally
+    try:
+        yield tally
+    finally:
+        _local.tally = None
 
 
 def record(site: str, path: str, variant: str | None = None) -> None:
@@ -47,12 +81,23 @@ def status(site: str | None = None) -> dict:
 
 def count_launch(site: str, variant: str | None = None) -> None:
     """Add one to ``site``'s launch count (called right after a launch),
-    and to its ``variant``'s."""
+    and to its ``variant``'s; inside :func:`capturing`, to the thread's
+    tally instead."""
+    tally = getattr(_local, "tally", None)
+    if tally is not None:
+        key = (site, variant)
+        tally.counts[key] = tally.counts.get(key, 0) + 1
+        return
     with _lock:
-        _LAUNCHES[site] = _LAUNCHES.get(site, 0) + 1
-        if variant is not None:
-            per = _VARIANTS.setdefault(site, {})
-            per[variant] = per.get(variant, 0) + 1
+        _add(site, variant, 1)
+
+
+def _add(site: str, variant: str | None, n: int) -> None:
+    """Add ``n`` launches of ``site`` (and ``variant``); holds _lock."""
+    _LAUNCHES[site] = _LAUNCHES.get(site, 0) + n
+    if variant is not None:
+        per = _VARIANTS.setdefault(site, {})
+        per[variant] = per.get(variant, 0) + n
 
 
 def launches(site: str | None = None):

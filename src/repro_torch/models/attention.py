@@ -235,22 +235,36 @@ def gqa_init_cache(cfg: ModelConfig, batch: int, max_len: int,
     }
 
 
-def gqa_decode(p, cfg: ModelConfig, x, cache: Optional[dict], pos: int, *,
+def decode_position(pos, device) -> torch.Tensor:
+    """A decode step's absolute position as a 0-dim int32 tensor on
+    ``device``: a tensor is taken as it is (a CUDA graph's static
+    position), an int is filled in on the device (no copy from the
+    host)."""
+    if isinstance(pos, torch.Tensor):
+        return pos
+    return torch.full((), int(pos), dtype=torch.int32, device=device)
+
+
+def gqa_decode(p, cfg: ModelConfig, x, cache: Optional[dict], pos, *,
                window: int = 0, rope: bool = True,
                cross_kv: Optional[tuple] = None):
-    """One-token decode. x: (B,1,D); pos: absolute position (an int).
+    """One-token decode. x: (B,1,D); pos: absolute position, an int or a
+    0-dim int tensor on x's device (:func:`decode_position`).
 
     Writes this token's K/V into slot ``pos`` (``pos % L`` for a rolling
     window) of ``cache`` in place, then attends through
     ``kernels.flash_decode_gqa`` with the per-slot validity mask standing
-    in for the causal structure.  With ``cross_kv`` (whisper's encoder
-    K/V, (B, Sk, KV, Dh) each) it attends to those through the dense
-    ``_attend``, all keys visible, and leaves ``cache`` as it is.
+    in for the causal structure.  The position, the slot, the writes and
+    the mask are computed on the device from the position tensor alone,
+    so the step never waits for the host and a CUDA graph of it replays
+    at whatever position the tensor holds.  With ``cross_kv`` (whisper's
+    encoder K/V, (B, Sk, KV, Dh) each) it attends to those through the
+    dense ``_attend``, all keys visible, and leaves ``cache`` as it is.
     Returns (out (B,1,D), cache)."""
     B = x.shape[0]
     dh, h, kvh = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    pos = int(pos)
-    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    pos = decode_position(pos, x.device)
+    positions = pos.expand(B, 1)
     q, k_new, v_new = _gqa_qkv(p, cfg, x, positions, rope=rope)
     if cross_kv is not None:
         k, v = cross_kv
@@ -262,10 +276,10 @@ def gqa_decode(p, cfg: ModelConfig, x, cache: Optional[dict], pos: int, *,
         return dense(p["o"], out.reshape(B, 1, h * dh)), cache
     k, v, cpos = cache["k"], cache["v"], cache["pos"]
     L = k.shape[1]
-    slot = pos % L if window > 0 else pos
-    k[:, slot] = k_new[:, 0].to(k.dtype)
-    v[:, slot] = v_new[:, 0].to(v.dtype)
-    cpos[slot] = pos
+    slot = (pos % L if window > 0 else pos).reshape(1).long()
+    k.index_copy_(1, slot, k_new.to(k.dtype))
+    v.index_copy_(1, slot, v_new.to(v.dtype))
+    cpos.index_copy_(0, slot, pos.reshape(1).to(cpos.dtype))
     valid = (cpos >= 0) & (cpos <= pos)
     if window > 0:
         valid &= cpos > pos - window

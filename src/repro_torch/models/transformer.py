@@ -64,6 +64,12 @@ class TransformerModel:
                               else cfg.n_layers)
         # text positions start after the patch prefix (vlm)
         self.prefix = cfg.n_patch_tokens if cfg.family == "vlm" else 0
+        #: whether a CUDA graph may capture ``decode_step`` (at a position
+        #: held in a device tensor): every layer dense GQA.  MoE routing
+        #: has data-dependent shapes, MLA decodes at a host position, and
+        #: the vlm's embedding scale is copied from the host each call.
+        self.decode_capturable = (cfg.family == "dense" and not cfg.moe
+                                  and not cfg.mla)
 
     # ------------------------------------------------------------ specs
     def _attn_specs(self) -> dict:
@@ -253,7 +259,7 @@ class TransformerModel:
                      for _ in range(n)]
                 for _, ck, _, n in self._stacks()}
 
-    def _decode_layer(self, lp, lc, x: torch.Tensor, pos: int,
+    def _decode_layer(self, lp, lc, x: torch.Tensor, pos,
                       moe: bool) -> torch.Tensor:
         cfg = self.cfg
         xn = apply_norm(lp["ln1"], cfg, x)
@@ -264,16 +270,20 @@ class TransformerModel:
                                    window=cfg.sliding_window)
         return self._ffn(lp, x + a, moe)[0]
 
-    def decode_step(self, params, cache: dict, tokens: torch.Tensor,
-                    pos: int):
+    def decode_step(self, params, cache: dict, tokens: torch.Tensor, pos):
         """tokens (B,1), pos absolute text position -> (logits (B,1,V),
         cache); the cache is written in place (vlm: at pos + the patch
-        prefix)."""
+        prefix).  ``pos`` is an int or, for GQA layers, a 0-dim int
+        tensor on the cache's device, which the step reads on the device
+        alone (``attention.decode_position``)."""
         cfg = self.cfg
         x = F.embedding(tokens, params["embed"])
         if cfg.family == "vlm":
             x = self._gemma_scale(x)
-        pos = int(pos) + self.prefix
+        if self.prefix:
+            pos = pos + self.prefix
+        if not cfg.mla:             # one position tensor for every layer
+            pos = attn.decode_position(pos, x.device)
         for key, ck, moe, _ in self._stacks():
             for lp, lc in zip(params[key], cache[ck]):
                 x = self._decode_layer(lp, lc, x, pos, moe)

@@ -17,10 +17,12 @@ a fixed order, so duplicates give the same tokens bit for bit).
     :class:`FusedGenerator` prefills a cache preallocated for the group
     in one full-sequence pass, then runs max_new steps of decode_step +
     greedy argmax on the device with the token fed straight back; the
-    tokens reach the host once, at the end of the group.
-    ``fused_decode=False`` walks every position, prompt included, through
-    ``decode_step`` with the argmax on the host
-    (:func:`greedy_decode_group`, the per-token baseline).
+    tokens reach the host once, at the end of the group.  On the card a
+    dense GQA model's group captures its decode step in one CUDA graph
+    and replays it for the group's later steps
+    (:meth:`FusedGenerator.graphed`).  ``fused_decode=False`` walks every
+    position, prompt included, through ``decode_step`` with the argmax on
+    the host (:func:`greedy_decode_group`, the per-token baseline).
   * THREADED MODE: replicas run as OS threads; rDLB duplicates race their
     originals in wall-clock time.
   * PROCESS MODE: replicas are worker processes
@@ -31,15 +33,18 @@ a fixed order, so duplicates give the same tokens bit for bit).
   * SPANS: inside a traced threaded run (``ExecutionSpec.trace``) the
     engine makes the replica's chunk the thread's
     :func:`repro_torch.core.trace.current` context, and each request
-    group, prefill and decode step lands on the engine's flight recorder
-    as an EV_GROUP / EV_PREFILL / EV_STEP row with its wall and thread CPU
-    time; no span synchronises with the device.
+    group, prefill, decode step and graph capture lands on the engine's
+    flight recorder as an EV_GROUP / EV_PREFILL / EV_STEP / EV_GRAPH row
+    with its wall and thread CPU time; no span synchronises with the
+    device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import threading
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -47,6 +52,7 @@ import torch
 
 from repro_torch import api
 from repro_torch.core import trace
+from repro_torch.kernels import dispatch
 from repro_torch.models.common import first_tensor
 from repro_torch.runtime.backends import ServeBackend
 
@@ -114,6 +120,75 @@ def greedy_decode_group(model, params, decode_step: Callable,
     return toks[:B, S:]
 
 
+#: fewest decode steps a group needs for :class:`FusedGenerator` to
+#: capture its step in a CUDA graph: step 1 runs eagerly, the capture runs
+#: nothing, and the graph then replays the group's other steps
+GRAPH_MIN_STEPS = 3
+
+_lanes_lock = threading.Lock()
+_free_lanes: dict = {}
+
+
+class _Lane:
+    """A side stream of one device that one group at a time captures and
+    replays on, the memory pool its captures share, and the last graph
+    captured into that pool.  The last graph is kept until the next
+    capture on the lane has begun, so the pool is never left without a
+    graph and its blocks serve every later capture on the lane instead
+    of a fresh pool a group."""
+
+    def __init__(self, dev: torch.device):
+        self.stream = torch.cuda.Stream(device=dev)
+        self.pool = torch.cuda.graph_pool_handle()
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+
+
+@contextlib.contextmanager
+def _lane(dev: torch.device):
+    """Lease a :class:`_Lane` of ``dev`` for the block and run the block on
+    its stream, after the current stream's work so far and before its
+    later work.  Lanes are kept for later blocks, so there are only as
+    many as blocks that ran at once (and as many cuBLAS workspaces and
+    graph pools).  The block must leave no work of its own pending on the
+    stream (it ends by copying its tokens to the host), so the next
+    lease may drop the lane's graph at once."""
+    current = torch.cuda.current_stream(dev)
+    with _lanes_lock:
+        free = _free_lanes.setdefault(dev, [])
+        lane = free.pop() if free else _Lane(dev)
+    lane.stream.wait_stream(current)
+    try:
+        with torch.cuda.stream(lane.stream):
+            yield lane
+    finally:
+        current.wait_stream(lane.stream)
+        with _lanes_lock:
+            _free_lanes[dev].append(lane)
+
+
+def _capture(step: Callable[[], None], lane: _Lane) -> Callable[[], None]:
+    """Capture ``step`` into a CUDA graph on ``lane`` (its stream must be
+    current) in the thread-local mode, since other threads keep launching
+    meanwhile, into the lane's pool -> a function that replays it.  The
+    launches counted while capturing are added once per replay
+    (``kernels.dispatch.capturing``).  The graph replaces the lane's
+    last one."""
+    graph = torch.cuda.CUDAGraph()
+    with dispatch.capturing() as tally:
+        graph.capture_begin(pool=lane.pool,
+                            capture_error_mode="thread_local")
+        try:
+            step()
+        finally:
+            graph.capture_end()
+    lane.graph = graph
+
+    def replay() -> None:
+        graph.replay()
+        tally.replayed()
+    return replay
+
+
 class FusedGenerator:
     """Device-resident greedy generation: prefill, then a decode loop
     whose tokens never leave the device until the group is done.
@@ -131,13 +206,36 @@ class FusedGenerator:
 
     Token-identical to ``greedy_decode_group`` and to the reference's
     ``FusedGenerator`` on float32 configs (tests/test_torch_serve.py).
-    No CUDA graph yet: every step launches its kernels from Python.
+
+    A model that declares its decode step capturable
+    (``model.decode_capturable``: every layer dense GQA) runs the steps of
+    3. as one closure over a static input token and a static device
+    position (:meth:`_static_steps`); every other model walks them from
+    Python at int positions.  One CUDA graph a group (:meth:`graphed`):
+    on a CUDA device and for a group of at least :data:`GRAPH_MIN_STEPS`
+    steps, on a leased side stream (:class:`_Lane`), step 1 runs the
+    closure eagerly (it builds the state a capture must not, such as the
+    cuBLAS workspace of that stream), step 2 captures it once (through
+    ``model.decode_step``, the instance's attribute, so a wrapper is
+    captured too) into the lane's memory pool, and the graph then replays
+    steps 2 .. max_new - 1.  The same closure runs either way, with the
+    same kernels and shapes, so the tokens do not change.  Launches made
+    while capturing are counted once per replay
+    (``kernels.dispatch.capturing``).
+
     Under a chunk context (:func:`repro_torch.core.trace.current`) the
-    prefill and each step of 3. are recorded as spans.
+    prefill, each step of 3. (a replay included) and the capture are
+    recorded as spans (EV_PREFILL, EV_STEP, EV_GRAPH).
     """
 
     def __init__(self, model):
         self.model = model
+
+    def graphed(self, device: torch.device, steps: int) -> bool:
+        """Whether a group of ``steps`` decode steps on ``device`` replays
+        a CUDA graph of its step."""
+        return (device.type == "cuda" and steps >= GRAPH_MIN_STEPS
+                and getattr(self.model, "decode_capturable", False))
 
     def __call__(self, params, prompts: np.ndarray,
                  max_new: int) -> np.ndarray:
@@ -148,6 +246,7 @@ class FusedGenerator:
         buf = _padded(np.asarray(prompts, dtype=np.int32))
         rows = buf.shape[0]
         ctx = trace.current()
+        mark = None
         with torch.inference_mode():
             cache = model.init_cache(rows, S + max_new, device=dev)
             tokens = torch.from_numpy(buf).to(dev)
@@ -167,6 +266,9 @@ class FusedGenerator:
             out[:, 0] = tok
             if ctx is not None:
                 mark = ctx.now()
+            if getattr(model, "decode_capturable", False):
+                return self._static_steps(params, cache, tok, out, S, ctx,
+                                          mark)[:B]
             for i in range(1, max_new):
                 logits, cache = model.decode_step(params, cache,
                                                   tok[:, None], S + i - 1)
@@ -175,6 +277,39 @@ class FusedGenerator:
                 if ctx is not None:       # steps follow back to back
                     mark = ctx.span(trace.EV_STEP, mark, rows)
             return out.cpu().numpy()[:B]
+
+    def _static_steps(self, params, cache: dict, tok: torch.Tensor,
+                      out: torch.Tensor, S: int, ctx, mark) -> np.ndarray:
+        """Steps 1 .. max_new - 1 of a capturable model's group into
+        ``out``, each the same closure over a static input token and a
+        static device position, which it advances; -> ``out`` on the
+        host.  A graphed group runs on a leased lane and replays the
+        closure's graph from step 2 on (the capture itself runs
+        nothing)."""
+        model = self.model
+        rows, max_new = out.shape
+        dev = out.device
+        graphed = self.graphed(dev, max_new - 1)
+        with _lane(dev) if graphed else contextlib.nullcontext() as lane:
+            tok_in = tok[:, None].clone()
+            pos = torch.full((), S, dtype=torch.int32, device=dev)
+
+            def step() -> None:
+                logits, _ = model.decode_step(params, cache, tok_in, pos)
+                tok_in.copy_(torch.argmax(logits[:, -1, :], dim=-1)[:, None])
+                pos.add_(1)
+
+            run = step
+            for i in range(1, max_new):
+                if graphed and i == 2:
+                    run = _capture(step, lane)
+                    if ctx is not None:
+                        mark = ctx.span(trace.EV_GRAPH, mark, max_new - 2)
+                run()
+                out[:, i] = tok_in[:, 0]
+                if ctx is not None:       # steps follow back to back
+                    mark = ctx.span(trace.EV_STEP, mark, rows)
+            return out.cpu().numpy()
 
 
 def decode_request_groups(model, params, decode_step: Callable, reqs: list,

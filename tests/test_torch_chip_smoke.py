@@ -83,8 +83,9 @@ def test_exec_requests_open_with_an_equal_length_pair():
 
 def test_exec_launch_problems():
     """The mode table's expectations: n_layers launches of the prefill
-    site a prefill call and of the decode site a decode step, no other
-    site, no prefill in the per-token loop modes."""
+    site a prefill call and of the decode site a decode step (a fused
+    group's SERVE_NEW - 1 steps, graphed or not), no other site, no
+    prefill in the per-token loop modes."""
     sites, L = ("flash_attention", "flash_decode"), 3
     fused = {"prefill": 2, "decode_step": 30}
     loop = {"prefill": 0, "decode_step": 100}
@@ -102,6 +103,18 @@ def test_exec_launch_problems():
     assert check(sites, L, True, fused, {"flash_attention": 6,
                                          "flash_decode": 90, "other": 1})
     assert check(sites, L, False, {"prefill": 0, "decode_step": 0}, {})
+    # graphed groups call decode_step twice (step 1 and the capture) and
+    # replay the rest: the launches still count every step
+    graphed = {"prefill": 2, "decode_step": 4}
+    assert check(sites, L, True, graphed,
+                 {"flash_attention": 6, "flash_decode": 90},
+                 graphed=True) == []
+    assert check(sites, L, True, graphed,
+                 {"flash_attention": 6, "flash_decode": 12}, graphed=True)
+    assert check(sites, L, True, fused,
+                 {"flash_attention": 6, "flash_decode": 90}, graphed=True)
+    assert check(sites, L, True, graphed,
+                 {"flash_attention": 6, "flash_decode": 90})
 
 
 @pytest.fixture

@@ -732,3 +732,47 @@ def test_process_mode_serving_on_the_card(cuda):
                if c["kernels"] is not None]
     assert reports and all(r["launches"]["flash_decode"] > 0
                            for r in reports)
+
+
+@pytest.mark.parametrize("dtype,B,threads", [("float32", 1, 1),
+                                             ("bfloat16", 3, 1),
+                                             ("bfloat16", 1, 4)])
+def test_fused_generator_graph_equals_eager(cuda, dtype, B, threads):
+    """A dense model's groups replay one CUDA graph of the decode step
+    each: the eager loop's tokens exactly, one flash_decode launch a
+    layer a step counted (the captured launches once per replay), and,
+    with several threads capturing and replaying at once, each thread's
+    tokens its eager run's."""
+    import threading
+
+    from repro_torch.models import build_model
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.runtime.serve_executor import FusedGenerator
+    cfg = ModelConfig(family="dense", n_layers=2, d_model=256, n_heads=4,
+                      n_kv_heads=2, d_ff=512, vocab_size=512, dtype=dtype)
+    model = build_model(cfg)
+    params = model.init(0, device=cuda)
+    new = 9
+    rng = np.random.default_rng(B)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(B, 37 + 8 * t))
+               .astype(np.int32) for t in range(threads)]
+    eager = FusedGenerator(model)
+    eager.graphed = lambda device, steps: False
+    want = [eager(params, p, new) for p in prompts]
+    gen = FusedGenerator(model)
+    assert gen.graphed(cuda, new - 1)
+    got = [None] * threads
+    dispatch.reset_launches()
+
+    def run(t):
+        got[t] = gen(params, prompts[t], new)
+    pool = [threading.Thread(target=run, args=(t,)) for t in range(threads)]
+    for th in pool:
+        th.start()
+    for th in pool:
+        th.join()
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert dispatch.launches("flash_decode") == (cfg.n_layers * (new - 1)
+                                                 * threads)
+    assert dispatch.status("flash_decode")["path"] == "cuda"
