@@ -53,6 +53,12 @@ Phases, each fatal when it fails:
      every gradient within 1e-4 (float32) or 2**-6 (bfloat16) of its
      largest magnitude, and one backward at the training shape timed
      beside the kernel's forward, with the kernels it launches;
+     the dropless MoE kernels (moe_route, moe_gemm's gate-up and down)
+     against route_plain, schedule_plain and experts_plain on the same
+     card tensors at DeepSeek-V2-Lite's widths and published routing,
+     at prompts of 256, 1024 and 2040 tokens and decode steps of 1 and
+     4 (``MOE_TOKENS``), each kernel's device ms beside the layer's
+     bound from the experts its inputs touched;
   3. drive the paper's main path through the public API: threaded rDLB
      self-scheduling of the paper's Mandelbrot (512 x 512, 256
      iterations, SS, P=4) and PSIA (20,000 spin images over 16,384
@@ -105,7 +111,9 @@ Phases, each fatal when it fails:
      losses of a failure-free run;
   6. the other model families at full width in bfloat16 with seeded
      weights: deepseek-v2-lite-16b (MLA + 64 routed experts, top-6; full
-     depth) and hymba-1.5b (16 of 32 layers, ``FAMILY_DEPTH``) through
+     depth; the benchmark's configuration, with the published dropless
+     routing and YaRN, its run launching moe_route once and moe_gemm
+     twice a MoE layer a call, both variants) and hymba-1.5b (16 of 32 layers, ``FAMILY_DEPTH``) through
      phase 4's serving drive (fail-stop tokens equal
      a failure-free run's bit for bit, at least one duplicate; hymba's
      run must launch flash_decode and flash_attention), each with its
@@ -855,6 +863,141 @@ def compare_decode_kernels(dev) -> dict:
     rows["flash_decode"].update(max_abs_err=err, shapes=shapes)
 
     rows.update(compare_wkv6_kernels(dev))
+    return rows
+
+
+# The dropless MoE kernels (moe_route, and moe_gemm's gate-up and down
+# products) at the shapes the deepseek-v2-lite-16b.prefill-failstop cell
+# launches: DeepSeek-V2-Lite's widths (E 64, k 6, d 2048, f 1408) and
+# its published routing (MOE_CONFIG, the benchmark's configuration file),
+# at prompts of 256, 1024 and 2040 tokens (the prefill mix's range: the
+# tile variant) and at decode steps of 1 and 4 tokens (small_m).  Inputs
+# drawn from a seed: x ~ N(0, 1), logits 2 N(0, 1) (uneven, no expert
+# takes most rows), weights N(0, 1 / fan-in), bf16.  Routing equals the
+# plain version exactly (experts, counts), gates within 1e-6; the layer's
+# output within MOE_TOL of its largest magnitude (float32 sums in other
+# orders, and the hidden row rounded to bf16 between the products: one
+# bf16 rounding step, 2^-8, carried through W_down).
+MOE_CONFIG = os.path.join(ROOT, "portbench", "configs",
+                          "deepseek-v2-lite-16b.json")
+MOE_TOKENS = (1, 4, 256, 1024, 2040)
+MOE_ROW_TOKENS = 1024            # the moe rows of the {"kernels"} line
+MOE_TOL = 2 ** -7
+
+
+def published_deepseek():
+    """DeepSeek-V2-Lite as the benchmark serves it: the ``model`` block of
+    MOE_CONFIG (published routing, YaRN)."""
+    from repro_torch.models.config import ModelConfig
+    with open(MOE_CONFIG) as f:
+        return ModelConfig.from_reference(json.load(f)["model"])
+
+
+def moe_gemm_bound(T: int, K: int, touched: int, D: int, Fh: int):
+    """(bound_ms, by) of a layer's two grouped products: the touched
+    experts' weights read once, x's rows read, the hidden rows written
+    and read in bf16, the routed rows written in float32; against
+    2 x 3 x d x f operations a routed row at the bf16 peak."""
+    n_bytes = (touched * 3 * D * Fh * 2 + T * D * 2 + 2 * T * K * Fh * 2
+               + T * K * D * 4)
+    return bound_ms(n_bytes, 2 * 3 * D * Fh * T * K, peak=PEAK_BF16)
+
+
+def moe_kernel_ms(fn, reps: int) -> dict:
+    """Device ms per launch of each moe kernel over ``reps`` calls of
+    ``fn``, as a profiler trace records them: {"route", "gate_up",
+    "down"}; a kernel the trace holds no time for is left out."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in device_events(prof):
+        key = ev.key
+        part = ("route" if "moe_route_kernel" in key else
+                "gate_up" if "moe_gemm_kernel" in key and "true" in key else
+                "down" if "moe_gemm_kernel" in key else None)
+        if part and device_us(ev):
+            out[part] = out.get(part, 0.0) + device_us(ev) / ev.count / 1e3
+    return out
+
+
+def compare_moe_kernels(dev) -> dict:
+    """moe_route and moe_gemm against route_plain, schedule_plain and
+    experts_plain on the same card tensors at MOE_TOKENS, and timed
+    beside their bound; returns the two rows of the report."""
+    import torch
+    from repro_torch.kernels import moe as km
+    cfg = published_deepseek()
+    E, K, D, Fh = (cfg.n_routed_experts, cfg.top_k, cfg.d_model,
+                   cfg.d_expert)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    w = [(torch.randn(E, a, b, generator=gen, device=dev) / a ** 0.5)
+         .to(torch.bfloat16) for a, b in ((D, Fh), (D, Fh), (Fh, D))]
+    rows = {"moe_route": dict(name="moe_route", route="cuda", shapes=[]),
+            "moe_gemm": dict(name="moe_gemm", route="cuda", shapes=[])}
+    for T in MOE_TOKENS:
+        x = torch.randn(T, D, generator=gen, device=dev).to(torch.bfloat16)
+        logits = 2.0 * torch.randn(T, E, generator=gen, device=dev)
+        counter = torch.zeros(E, dtype=torch.int64, device=dev)
+
+        def launch(c=counter):
+            return km.routed_experts(
+                x, logits, *w, top_k=K, norm_topk=cfg.norm_topk_prob,
+                scale=cfg.routed_scaling_factor, counter=c)
+        with torch.inference_mode():
+            out, idx, gates = launch()
+            p_idx, p_gates = km.route_plain(logits, K, cfg.norm_topk_prob,
+                                            cfg.routed_scaling_factor)
+            want = km.experts_plain(x, p_idx, p_gates, *w)
+        torch.cuda.synchronize()
+        var = km.variant(T)
+        sch = km.schedule_plain(p_idx.cpu(), E, km.BM[var])
+        counts = counter.cpu()
+        gate_err = float((gates - p_gates).abs().max())
+        err = float((out - want).abs().max())
+        scale = float(want.abs().max())
+        if not torch.equal(idx.long(), p_idx):
+            fail(f"moe_route at T={T}: experts differ from route_plain")
+        if not torch.equal(counts, sch["counts"]):
+            fail(f"moe_route at T={T}: row counts differ from "
+                 f"schedule_plain")
+        if gate_err > 1e-6:
+            fail(f"moe_route at T={T}: gates off by {gate_err}")
+        if not err <= MOE_TOL * scale:
+            fail(f"moe_gemm at T={T}: max_abs_err={err} over "
+                 f"{MOE_TOL} x {scale}")
+        touched = int((counts > 0).sum())
+        spare = torch.zeros_like(counter)
+        with torch.inference_mode():
+            parts = moe_kernel_ms(lambda: launch(spare), 10)
+            ms = graph_ms(lambda: launch(spare), 10)
+        b, by = moe_gemm_bound(T, K, touched, D, Fh)
+        gemm_ms = (parts.get("gate_up", 0.0) + parts.get("down", 0.0)
+                   or None)
+        shape = dict(T=T, variant=var, touched=touched,
+                     max_rows=int(counts.max()), max_abs_err=err,
+                     out_scale=scale, gate_err=gate_err, layer_ms=ms,
+                     **parts, gemm_ms=gemm_ms, bound_ms=b, bound_by=by)
+        rows["moe_gemm"]["shapes"].append(shape)
+        rows["moe_route"]["shapes"].append(dict(T=T, ms=parts.get("route")))
+        print(f"compare,moe,T={T},{var},touched={touched},max_rows="
+              f"{shape['max_rows']},max_abs_err={err} (tol {MOE_TOL} x "
+              f"{scale}),gate_err={gate_err},route_ms={parts.get('route')},"
+              f"gate_up_ms={parts.get('gate_up')},down_ms="
+              f"{parts.get('down')},layer_ms={ms},bound_ms={b} ({by}),"
+              f"bound_share={b / gemm_ms if gemm_ms else None}")
+        if T == MOE_ROW_TOKENS:
+            rows["moe_gemm"].update(ms=gemm_ms, bound_ms=b, bound_by=by,
+                                    max_abs_err=err)
+            rows["moe_route"].update(ms=parts.get("route"))
+    del w
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -1814,9 +1957,13 @@ def restart_on_the_card() -> None:
 # through phase 4's serving drive (16 requests, prompts 37/64/1000, 16 new
 # tokens, worker 1 fail-stopping after 2); paligemma-3b and whisper-tiny
 # serve FEW_REQUESTS requests of FEW_PROMPTS through the same executor.
-# The kernels each run must launch (deepseek's serving path has none: MLA
-# decodes and prefills in the absorbed form, as the reference does, and
-# its experts are batched products).
+# deepseek is served as the benchmark serves it (published_deepseek: the
+# dropless routing, YaRN).  The kernels each run must launch (deepseek's
+# serving path: flash_attention in MLA's prefill, which the card computes
+# in the decompressed form, and the dropless MoE kernels, moe_route and
+# moe_gemm, in every MoE layer of a prefill and a decode step; MLA decodes
+# in the absorbed form, as the reference does).  The registry's config
+# (the reference's GShard experts) is held to the CPU in float32.
 FAMILY_ARCHS = ("deepseek-v2-lite-16b", "hymba-1.5b")
 # deepseek runs at full depth (27 layers, 31.4 GB: the point is that one
 # card holds it whole); hymba at 16 of its 32 layers (its global layers 0
@@ -1831,7 +1978,8 @@ FEW_REQUESTS = 4
 # prompts.
 FEW_PROMPTS = {"paligemma-3b": SERVE_PROMPTS,
                "whisper-tiny": SERVE_PROMPTS[:2]}
-FAMILY_SITES = {"deepseek-v2-lite-16b": (),
+FAMILY_SITES = {"deepseek-v2-lite-16b": ("flash_attention", "moe_route",
+                                         "moe_gemm"),
                 "hymba-1.5b": ("flash_decode", "flash_attention"),
                 "paligemma-3b": ("flash_decode", "flash_attention"),
                 "whisper-tiny": ("flash_decode",)}
@@ -1902,10 +2050,13 @@ def drive_family(dev, arch: str) -> dict:
     import gc
     import torch
     from repro_torch.configs import get_config
-    cfg = get_config(arch)
+    cfg = (published_deepseek() if arch == "deepseek-v2-lite-16b"
+           else get_config(arch))
     cfg = cfg.replace(n_layers=FAMILY_DEPTH.get(arch, cfg.n_layers))
     torch.cuda.reset_peak_memory_stats()
     model, params, launches = serve_drive(dev, cfg, FAMILY_SITES[arch])
+    if cfg.moe_dropless:
+        check_moe_launches(cfg, launches)
     step = decode_step_ms(model, params)
     ms = step["ms"]
     n_bytes = weight_bytes(params)
@@ -1913,9 +2064,10 @@ def drive_family(dev, arch: str) -> dict:
     extra = ""
     if cfg.moe:
         n_moe = cfg.n_layers - cfg.n_dense_layers
-        e_bytes = (n_moe * cfg.n_routed_experts * 3 * cfg.d_model
-                   * cfg.d_expert * 2)
-        extra = (f",routed experts alone={e_bytes / 1e9:.2f} GB -> "
+        n_read = cfg.top_k if cfg.moe_dropless else cfg.n_routed_experts
+        e_bytes = n_moe * n_read * 3 * cfg.d_model * cfg.d_expert * 2
+        extra = (f",routed experts read a step ({n_read} a layer)="
+                 f"{e_bytes / 1e9:.2f} GB -> "
                  f"{bound_ms(e_bytes, 0.0)[0]:.3f} ms")
     print(f"decode,{arch},B=1,S={DECODE_PROMPT},ms_per_step={ms:.3f},"
           f"bound: weights read a step={n_bytes / 1e9:.2f} GB at "
@@ -1933,6 +2085,32 @@ def drive_family(dev, arch: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+def check_moe_launches(cfg, launches: dict) -> None:
+    """The fail-stop serving run of the dropless config (launch counts
+    set to 0 just before it): moe_route once and moe_gemm twice a MoE
+    layer a model call; the drive's two runs (fail-stop, failure-free)
+    launched both variants (the prefills' tile, the decode steps'
+    small_m).  Prints the counts and the routed rows' largest (layer,
+    expert) load over the mean, over the drive's two runs."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import moe as km
+    n_moe = cfg.n_layers - cfg.n_dense_layers
+    route = launches.get("moe_route", 0)
+    by_var = dispatch.variant_launches("moe_gemm")
+    rows = dispatch.device_counters()[km.ROWS_COUNTER]
+    rows = rows[cfg.n_dense_layers:].double().cpu()
+    load = float(rows.max() / rows.mean()) if rows.sum() else None
+    print(f"moe,{cfg.name},serving: moe_route launches={route},moe_gemm "
+          f"launches={launches.get('moe_gemm', 0)} by variant {by_var},"
+          f"routed rows={int(rows.sum())},expert_load_max={load}")
+    if (route == 0 or route % n_moe
+            or launches.get("moe_gemm", 0) != 2 * route
+            or not by_var.get("tile") or not by_var.get("small_m")):
+        fail(f"{cfg.name}: moe launches {route} / {by_var} are not one "
+             f"routing and two products a MoE layer a call in both "
+             f"variants")
 
 
 def drive_few(dev, arch: str) -> dict:
@@ -2244,8 +2422,8 @@ def family_kernel_shapes(dev, rows: dict) -> None:
     paligemma's prompt prefills.  And flash_attention at MLA's forward
     (D = 192, Dv = 128): at the 2-layer check's prompt, which
     check_against_cpu launches, and at the 1000-token prompt length
-    (model.forward and loss; deepseek's serving path launches no
-    kernel).  Added to the rows' ``shapes``."""
+    (model.forward and loss; the serving path's prefill launches it
+    too).  Added to the rows' ``shapes``."""
     import torch
     from repro_torch.configs import get_config
     gen = torch.Generator().manual_seed(9)
@@ -2283,7 +2461,7 @@ def family_kernel_shapes(dev, rows: dict) -> None:
             (SERVE_PROMPTS[0], torch.float32, "the 2-layer check's forward",
              "fp32"),
             (SERVE_PROMPTS[-1], torch.bfloat16,
-             "forward at the longest prompt, not launched in this run",
+             "prefill (serving) and forward at the longest prompt",
              "wgmma")):
         att.append(attention_shape(dev, f"deepseek-v2-lite-16b MLA {what}",
                                    S, ds.n_heads, ds.n_heads, mla,
@@ -2297,7 +2475,8 @@ def drive_families(dev, rows: dict) -> None:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    for site in ("flash_decode", "flash_attention"):
+    for site in ("flash_decode", "flash_attention", "moe_route",
+                 "moe_gemm"):
         rows[site]["launches_families"] = {}
     for arch in FAMILY_ARCHS:
         launches = drive_family(dev, arch)
@@ -3374,8 +3553,13 @@ def main() -> int:
     wgmma_instances = 0
     for src, name, regs, spills in ptxas_entries(_build.build_log):
         if "wgmma" in name or src in ("flash_decode.cu", "wkv6.cu",
-                                      "mandelbrot.cu", "spin_image.cu"):
+                                      "mandelbrot.cu", "spin_image.cu",
+                                      "moe.cu"):
             print(f"ptxas,{src},{name},{regs},{spills}")
+        # the grouped expert product keeps its accumulators and A
+        # fragments in registers
+        if "moe_gemm_kernel" in name and spill_bytes(spills):
+            fail(f"ptxas spills in {name}: {spills}")
         # every (D, Dv) instance of the wgmma kernel keeps its O, S and P
         # in registers: a spill would put them in local memory
         if "flash_attention_wgmma" in name:
@@ -3393,6 +3577,16 @@ def main() -> int:
              f"instances ({wgmma_instances} in the ptxas report) for "
              f"{len(kf.WGMMA_DIMS)} head-dim pairs, or one lacks HGMMA "
              f"or UTMALDG instructions: {sass}")
+    # the grouped expert product: 4 instances (two variants x gate-up and
+    # down), each on wgmma with its weights through TMA
+    moe_sass = sass_counts(_build, "moe_gemm_kernel")
+    for name, c in moe_sass.items():
+        print(f"sass,{name},HGMMA={c['HGMMA']},UTMALDG={c['UTMALDG']}")
+    if len(moe_sass) != 4 or not all(c["HGMMA"] > 0 and c["UTMALDG"] > 0
+                                     for c in moe_sass.values()):
+        fail(f"the built moe_gemm kernel has {len(moe_sass)} instances "
+             f"for 4, or one lacks HGMMA or UTMALDG instructions: "
+             f"{moe_sass}")
     dev = torch.device("cuda")
 
     phase_done(1)
@@ -3400,6 +3594,7 @@ def main() -> int:
     rows = compare_kernels(dev)
     rows.update(compare_decode_kernels(dev))
     rows.update(compare_attention_kernel(dev))
+    rows.update(compare_moe_kernels(dev))
 
     phase_done(2)
     # phase 3: rDLB end to end, with a real fail-stop

@@ -27,7 +27,14 @@ and prints, as the last line, one JSON object with
     capture_ms (mean ``EV_GRAPH`` wall: capture and instantiation);
   * ``harness``: the run's own metrics (``decode_step_ms`` among them),
     its idle-gap breakdown and the share of it charged to the harness's
-    decode-step and prefill labels.
+    decode-step and prefill labels;
+  * ``moe`` (a dropless MoE model, else null): the window's routed rows of
+    each MoE layer from the program's device counter
+    (``kernels.moe.ROWS_COUNTER``: rows, the largest expert's over the
+    mean, the least and most rows, experts routed none), and the window's
+    launches of the MoE and attention sites with their variants
+    (``kernels.dispatch``); each layer's loads are also printed to
+    standard error.
 """
 
 from __future__ import annotations
@@ -125,6 +132,28 @@ def span_readings(traces: list, dev: list | None, sites) -> dict:
     return out
 
 
+def moe_readings(log=print) -> dict | None:
+    """The window's per-layer expert loads and MoE dispatch counts (see
+    the module), or None where no MoE layer counted rows."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import moe as km
+    rows = dispatch.device_counters().get(km.ROWS_COUNTER)
+    if rows is None or not int(rows.sum()):
+        return None
+    loads = []
+    for i, r in enumerate(rows.cpu()):
+        if r.sum() > 0:
+            loads.append(dict(layer=i, rows=int(r.sum()),
+                              max_over_mean=float(r.max() / r.double().mean()),
+                              least=int(r.min()), most=int(r.max()),
+                              empty=int((r == 0).sum())))
+            log(f"expert loads, layer {i}: {r.tolist()}")
+    sites = (km.SITE_ROUTE, km.SITE_GEMM, "flash_attention")
+    return dict(expert_loads=loads,
+                launches={s: dispatch.launches(s) for s in sites},
+                variants={s: dispatch.variant_launches(s) for s in sites})
+
+
 def read_cell(bench: dict, workload: str, *, seed: int, seconds: float,
               device: str = "cuda", limits: str | None = None,
               log=print) -> dict:
@@ -158,6 +187,7 @@ def read_cell(bench: dict, workload: str, *, seed: int, seconds: float,
     gaps = dict(result.get("breakdown", {}).get("idle_gaps", []))
     return dict(
         workload=workload, seed=seed, card=run.power_limit(),
+        moe=moe_readings(log),
         spans=span_readings(window, dev, cell.config["sites"]),
         harness=dict(metrics={k: v["value"]
                               for k, v in result["metrics"].items()},

@@ -73,6 +73,35 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* tmap,
       : "memory");
 }
 
+// One box of a 3-D tensor map into shared memory at `dst`, as
+// tma_load_4d.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* tmap,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(tmap)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// ---------------------------------------------------------------- ldmatrix
+// Four 8 x 8 bf16 matrices from shared memory, lane i giving the address
+// of row i % 8 of matrix i / 8 (16 bytes, 16-byte aligned); register j
+// holds the thread's pair of matrix j.  With rows 0-7 / 8-15 of a 16-row
+// slab in matrices 0 and 1 and their next 8 columns in 2 and 3, that is
+// the A fragment of mma m16n8k16 and of a warp's 16 rows of wgmma's A in
+// registers.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
 // ------------------------------------------------------------------ wgmma
 // Shared-memory matrix descriptor of a tile in the 128-byte swizzle
 // layout that TMA's CU_TENSOR_MAP_SWIZZLE_128B writes: start address,

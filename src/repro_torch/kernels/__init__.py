@@ -6,11 +6,14 @@ flash_attention   single-query attention over a KV cache (flash_decode),
                   full-sequence attention with its log-sum-exp
                   (flash_attention; backward in PyTorch ops)
 rwkv6_scan        WKV6 recurrence: one decode step, chunked prefill
+moe               dropless MoE: top-k routing and the grouped expert
+                  products (wgmma, weights through TMA)
 
 Each kernel module holds the wrapper that launches the kernel on CUDA
 tensors, and its plain PyTorch version, which CPU tensors take;
-``ops.py`` re-exports the wrappers and ``ref.py`` the plain versions.
-``_build.py`` compiles the sources at first use, never at import.
+``ops.py`` re-exports the CUDA wrappers and ``ref.py`` the plain
+versions the reference has oracles for.  ``_build.py`` compiles the
+sources at first use, never at import.
 """
 
 from repro_torch.kernels import ops, ref  # noqa: F401

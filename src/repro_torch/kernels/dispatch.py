@@ -11,6 +11,11 @@ the kernels.  A site with more than one kernel (flash_attention:
 "wgmma" and "fp32") also records which variant ran, and counts launches
 per variant.
 
+A site may also keep an int64 counter on the device (:func:`device_counter`:
+the MoE layer's routed rows per (layer, expert)), which its kernels add to
+without waiting for the host and which a run reads only when it is over.
+:func:`reset_launches` sets those to 0 too.
+
 A launch made while its thread captures a CUDA graph runs nothing: it is
 counted into the thread's :class:`Tally` (:func:`capturing`), and the
 graph's owner adds the tally to the counts once per replay, so the
@@ -22,6 +27,8 @@ from __future__ import annotations
 import contextlib
 import threading
 
+import torch
+
 PATHS = ("cuda", "torch")
 #: devices whose tensors take the plain versions: the CPU, and ``meta``
 #: (shapes only), where the dry run counts the plain versions' ops
@@ -31,6 +38,7 @@ _lock = threading.Lock()
 _STATUS: dict[str, dict] = {}
 _LAUNCHES: dict[str, int] = {}
 _VARIANTS: dict[str, dict[str, int]] = {}
+_COUNTERS: dict[str, torch.Tensor] = {}
 _local = threading.local()
 
 
@@ -113,8 +121,34 @@ def variant_launches(site: str) -> dict[str, int]:
         return dict(_VARIANTS.get(site, {}))
 
 
+def device_counter(name: str, shape: tuple, device) -> torch.Tensor:
+    """The int64 counter ``name`` of ``shape`` on ``device``, made with
+    zeros the first time it is asked for there in that shape (a new shape
+    or device replaces it)."""
+    device = torch.device(device)
+    t = _COUNTERS.get(name)       # the common case reads without the lock
+    if t is not None and t.device == device and tuple(t.shape) == tuple(shape):
+        return t
+    with _lock:
+        t = _COUNTERS.get(name)
+        if t is None or t.device != device or tuple(t.shape) != tuple(shape):
+            with torch.inference_mode(False):   # a normal tensor: reset
+                t = torch.zeros(shape, dtype=torch.int64, device=device)
+            _COUNTERS[name] = t
+        return t
+
+
+def device_counters() -> dict[str, torch.Tensor]:
+    """{name: counter tensor} as they stand (read them after the work:
+    reading a CUDA tensor waits for the device)."""
+    with _lock:
+        return dict(_COUNTERS)
+
+
 def reset_launches() -> None:
-    """Set every launch count to 0."""
+    """Set every launch count, and every device counter, to 0."""
     with _lock:
         _LAUNCHES.clear()
         _VARIANTS.clear()
+        for t in _COUNTERS.values():
+            t.zero_()

@@ -5,9 +5,14 @@ GQA/MQA     qwen2/qwen3/olmo/deepseek-coder/paligemma/whisper/hymba
     rolling cache (hymba), cross-attention to given K/V (whisper)
 MLA         deepseek-v2/v3 multi-head latent attention
   - train: expand the compressed kv and run standard causal attention
-  - decode / prefill: the ABSORBED form over the compressed c_kv cache
-    (rank kv_lora_rank) + the shared rope keys, never materialising
-    per-head K/V for the context
+  - decode: the ABSORBED form over the compressed c_kv cache (rank
+    kv_lora_rank) + the shared rope keys, never materialising per-head
+    K/V for the context
+  - prefill: writes that compressed cache; on the card it attends in the
+    decompressed form through ``flash_attention`` (the wgmma variant at
+    (D, Dv) = (192, 128)), elsewhere in the absorbed form
+  - YaRN (``cfg.rope_scaling``) on both rope halves, and its m^2 on the
+    softmax scale (:func:`mla_scale`)
 
 Full-sequence paths (training, prefill) with a plain causal mask attend
 through ``kernels.flash_attention_gqa`` at any length (MLA's forward too,
@@ -22,7 +27,8 @@ dtype.  Windowed and prefix-LM masks take the dense ``_attend`` below
 ops, as the reference's is jnp) at or above it; cross-attention takes the
 dense ``_attend`` with an all-true mask, as in the reference.  MLA's
 absorbed decode and prefill are the reference's einsums as torch ops,
-with its roundings (no kernel in the reference either).
+with its roundings (no kernel in the reference either); MLA's prefill on
+the card is the decompressed form above.
 
 Caches are preallocated and written in place (the reference returns new
 ones).  The MLA cache has no ``pos`` array: slot s is valid once
@@ -36,8 +42,9 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models.common import (ParamSpec, apply_rope, dense,
-                                       dense_specs, rms_norm)
+from repro_torch.models.common import (ParamSpec, apply_rope,
+                                       apply_rope_prefix, dense,
+                                       dense_specs, rms_norm, yarn_mscale)
 from repro_torch.models.config import ModelConfig
 from repro_torch.trips import full, trips
 
@@ -347,6 +354,14 @@ def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.reshape(c, H * d)).reshape(*x.shape[:-1], H, d)
 
 
+def _rope(x, cfg: ModelConfig, positions, heads: bool):
+    """RoPE at ``positions``, or at 0..S-1 (a prefill's) for None."""
+    if positions is None:
+        return apply_rope_prefix(x, cfg.rope_theta, cfg.rope_scaling,
+                                 heads=heads)
+    return apply_rope(x, positions, cfg.rope_theta, cfg.rope_scaling)
+
+
 def _mla_q(p, cfg: ModelConfig, x, positions):
     dn = cfg.nope_head_dim
     if cfg.q_lora_rank > 0:
@@ -355,7 +370,7 @@ def _mla_q(p, cfg: ModelConfig, x, positions):
     else:
         q = _heads(x, p["q"])
     q_nope, q_rope = q[..., :dn], q[..., dn:]
-    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    q_rope = _rope(q_rope, cfg, positions, True)
     return q_nope, q_rope      # (B,S,H,dn), (B,S,H,dr)
 
 
@@ -363,29 +378,47 @@ def _mla_ckv(p, cfg: ModelConfig, x, positions):
     c = cfg.kv_lora_rank
     ckv_kr = dense(p["dkv"], x)
     c_kv = rms_norm(ckv_kr[..., :c], p["kv_norm"])        # (B,S,c)
-    k_rope = apply_rope(ckv_kr[..., c:], positions, cfg.rope_theta)
+    k_rope = _rope(ckv_kr[..., c:], cfg, positions, False)
     return c_kv, k_rope                                    # (B,S,dr)
 
 
-def mla_forward(p, cfg: ModelConfig, x, positions) -> torch.Tensor:
-    """Full-sequence MLA: expand the compressed kv, fold the shared rope
-    key into every head (q = [q_nope; q_rope], k = [k_nope; k_rope]) and
-    attend causally through ``ops.flash_attention_gqa`` at any S: the
-    function of the reference's two-part einsum below ``flash_threshold``
-    and of its ``flash_attend`` above it."""
-    B, S, _ = x.shape
-    h = cfg.n_heads
-    dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
-    q_nope, q_rope = _mla_q(p, cfg, x, positions)
-    c_kv, k_rope = _mla_ckv(p, cfg, x, positions)
+def mla_scale(cfg: ModelConfig) -> float:
+    """The softmax scale (nope + rope)^-0.5, times m^2 under YaRN with a
+    ``mscale_all_dim`` (DeepSeek-V2: m = 0.1 * 0.707 * ln 40 + 1)."""
+    scale = (cfg.nope_head_dim + cfg.rope_head_dim) ** -0.5
+    y = cfg.yarn
+    if y and y.get("mscale_all_dim"):
+        m = yarn_mscale(y["factor"], y["mscale_all_dim"])
+        scale = scale * m * m
+    return scale
+
+
+def _mla_decompressed(p, cfg: ModelConfig, q_nope, q_rope, c_kv, k_rope):
+    """Causal attention with the compressed kv expanded per head and the
+    shared rope key folded into every head (q = [q_nope; q_rope],
+    k = [k_nope; k_rope]) through ``ops.flash_attention_gqa`` at
+    D = nope + rope, Dv = v -> (B, S, H * dv)."""
+    B, S, h, _ = q_nope.shape
+    dr = cfg.rope_head_dim
     k_nope = _heads(c_kv, p["uk"])
     v = _heads(c_kv, p["uv"])
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, h, dr)],
                   dim=-1)
     out = ops.flash_attention_gqa(q, k, v.contiguous(), causal=True,
-                                  scale=(dn + dr) ** -0.5)
-    return dense(p["o"], out.reshape(B, S, h * dv))
+                                  scale=mla_scale(cfg))
+    return out.reshape(B, S, h * cfg.v_head_dim)
+
+
+def mla_forward(p, cfg: ModelConfig, x, positions) -> torch.Tensor:
+    """Full-sequence MLA in the decompressed form
+    (:func:`_mla_decompressed`): the function of the reference's two-part
+    einsum below ``flash_threshold`` and of its ``flash_attend`` above
+    it."""
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    c_kv, k_rope = _mla_ckv(p, cfg, x, positions)
+    return dense(p["o"], _mla_decompressed(p, cfg, q_nope, q_rope, c_kv,
+                                           k_rope))
 
 
 def mla_init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -413,7 +446,7 @@ def _mla_absorbed(p, cfg: ModelConfig, q_nope, q_rope, ck, kr, mask):
     f32 = torch.float32
     scores = (torch.einsum("bqhc,bsc->bhqs", q_c.to(f32), ck.to(f32))
               + torch.einsum("bqhd,bsd->bhqs", q_rope.to(f32), kr.to(f32))
-              ) * (dn + dr) ** -0.5
+              ) * mla_scale(cfg)
     scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(ck.dtype)
     ctx_c = torch.einsum("bhqs,bsc->bqhc", probs, ck)      # (B,Sq,H,c)
@@ -438,18 +471,23 @@ def mla_decode(p, cfg: ModelConfig, x, cache: dict, pos: int):
 
 
 def mla_prefill(p, cfg: ModelConfig, x, cache: dict):
-    """Prompt prefill into the compressed decode cache — the vectorised
-    twin of :func:`mla_decode` (the same absorbed einsums, S queries at
-    once, over the cache as stored), writing positions 0..S-1 in place.
-    x: (B,S,D).  Returns (out (B,S,D), cache)."""
-    B, S, _ = x.shape
+    """Prompt prefill into the compressed decode cache, writing positions
+    0..S-1 in place.  Two forms of the same attention, chosen by the
+    device: on the card the prompt's c_kv is expanded per head and
+    attends through ``flash_attention`` (:func:`_mla_decompressed`);
+    elsewhere the vectorised twin of :func:`mla_decode`, the absorbed
+    einsums over the cache as stored (:func:`_mla_absorbed`).  x:
+    (B,S,D).  Returns (out (B,S,D), cache)."""
+    S = x.shape[1]
     dev = x.device
-    positions = torch.arange(S, device=dev)[None].expand(B, S)
-    q_nope, q_rope = _mla_q(p, cfg, x, positions)         # (B,S,H,*)
-    c_new, kr_new = _mla_ckv(p, cfg, x, positions)        # (B,S,c),(B,S,dr)
+    q_nope, q_rope = _mla_q(p, cfg, x, None)              # (B,S,H,*)
+    c_new, kr_new = _mla_ckv(p, cfg, x, None)             # (B,S,c),(B,S,dr)
     cache["c_kv"][:, :S] = c_new.to(cache["c_kv"].dtype)
     cache["k_rope"][:, :S] = kr_new.to(cache["k_rope"].dtype)
     ck, kr = cache["c_kv"][:, :S], cache["k_rope"][:, :S]
-    out = _mla_absorbed(p, cfg, q_nope, q_rope, ck, kr,
-                        causal_mask(S, S, device=dev))
+    if dev.type == "cuda":
+        out = _mla_decompressed(p, cfg, q_nope, q_rope, ck, kr)
+    else:
+        out = _mla_absorbed(p, cfg, q_nope, q_rope, ck, kr,
+                            causal_mask(S, S, device=dev))
     return dense(p["o"], out), cache

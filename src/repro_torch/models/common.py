@@ -198,33 +198,118 @@ def layer_norm(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
 
 
 # -------------------------------------------------------------------- rope
+def yarn_mscale(factor: float, mscale: float = 1.0) -> float:
+    """YaRN's attention factor m = 0.1 * mscale * ln(factor) + 1 (1 at a
+    factor of 1 or below), as DeepSeek-V2's ``yarn_get_mscale``."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def yarn_correction_range(dim: int, theta: float, yarn: dict
+                          ) -> tuple[int, int]:
+    """The rotation pairs between which YaRN blends: the pair index at
+    which a frequency turns ``beta_fast`` and ``beta_slow`` times over
+    the original context, floored and ceiled, clipped to [0, dim - 1]."""
+    orig = yarn["original_max_position_embeddings"]
+
+    def pair(rot: float) -> float:
+        return (dim * math.log(orig / (rot * 2 * math.pi))
+                / (2 * math.log(theta)))
+    low = math.floor(pair(yarn["beta_fast"]))
+    high = math.ceil(pair(yarn["beta_slow"]))
+    return max(low, 0), min(high, dim - 1)
+
+
 @functools.lru_cache(maxsize=64)
-def _rope_freqs(dim: int, theta: float, device: torch.device
-                ) -> torch.Tensor:
+def _rope_freqs(dim: int, theta: float, device: torch.device,
+                yarn: tuple = ()) -> torch.Tensor:
     with torch.inference_mode(False):         # cached: a normal tensor
         exps = torch.arange(0, dim, 2, dtype=torch.float32,
                             device=device) / dim
-        return 1.0 / (theta ** exps)
+        extra = 1.0 / (theta ** exps)
+        if not yarn:
+            return extra
+        y = dict(yarn)
+        low, high = yarn_correction_range(dim, theta, y)
+        if low == high:
+            high += 0.001
+        ramp = torch.clamp((torch.arange(dim // 2, dtype=torch.float32,
+                                         device=device) - low)
+                           / (high - low), 0, 1)
+        keep = 1.0 - ramp          # 1: the pair keeps its frequency
+        inter = extra / y["factor"]
+        return inter * (1 - keep) + extra * keep
 
 
-def rope_freqs(dim: int, theta: float = 10000.0, *,
-               device=None) -> torch.Tensor:
+def rope_freqs(dim: int, theta: float = 10000.0, *, device=None,
+               yarn: tuple = ()) -> torch.Tensor:
     """(dim/2,) float32 inverse frequencies, cached per (dim, theta,
-    device); treat the result as read-only."""
-    return _rope_freqs(int(dim), float(theta), torch.device(device or "cpu"))
+    device, yarn); treat the result as read-only.  With ``yarn`` (a
+    config's ``rope_scaling`` pairs) they are DeepSeek-V2's YaRN
+    frequencies: pairs below the correction range keep theta's
+    frequency, pairs above it are divided by ``factor``, and those in
+    between blend linearly."""
+    return _rope_freqs(int(dim), float(theta), torch.device(device or "cpu"),
+                       tuple(yarn))
+
+
+def rope_cos_scale(yarn: tuple) -> float:
+    """YaRN's factor on cos and sin: m(mscale) / m(mscale_all_dim) (1 with
+    DeepSeek-V2-Lite's equal values; 1 without YaRN)."""
+    if not yarn:
+        return 1.0
+    y = dict(yarn)
+    return (yarn_mscale(y["factor"], y.get("mscale", 1.0))
+            / yarn_mscale(y["factor"], y.get("mscale_all_dim", 0.0)))
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float = 10000.0) -> torch.Tensor:
-    """x: (..., S, H, Dh) or (..., S, Dh); positions: (..., S)."""
-    freqs = rope_freqs(x.shape[-1], theta, device=x.device)  # (dh/2,)
+               theta: float = 10000.0, yarn: tuple = ()) -> torch.Tensor:
+    """x: (..., S, H, Dh) or (..., S, Dh); positions: (..., S).  The
+    pairs are (i, i + Dh/2), as the reference's; ``yarn`` as
+    :func:`rope_freqs`."""
+    freqs = rope_freqs(x.shape[-1], theta, device=x.device,
+                       yarn=yarn)                           # (dh/2,)
     angles = positions[..., None].float() * freqs          # (..., S, dh/2)
     if x.dim() == angles.dim() + 1:                         # head axis
         angles = angles[..., None, :]
     cos, sin = torch.cos(angles), torch.sin(angles)
+    c = rope_cos_scale(yarn)
+    if c != 1.0:
+        cos, sin = cos * c, sin * c
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+@functools.lru_cache(maxsize=64)
+def _rope_table(S: int, dim: int, theta: float, device: torch.device,
+                yarn: tuple) -> tuple:
+    with torch.inference_mode(False):         # cached: normal tensors
+        freqs = _rope_freqs(dim, theta, device, yarn)
+        angles = torch.arange(S, device=device).float()[:, None] * freqs
+        cos, sin = torch.cos(angles), torch.sin(angles)
+        c = rope_cos_scale(yarn)
+        if c != 1.0:
+            cos, sin = cos * c, sin * c
+        return torch.cat([cos, cos], -1), torch.cat([-sin, sin], -1)
+
+
+def apply_rope_prefix(x: torch.Tensor, theta: float = 10000.0,
+                      yarn: tuple = (), *, heads: bool) -> torch.Tensor:
+    """:func:`apply_rope` at positions 0..S-1 (a prompt's prefill), bit
+    for bit: x (..., S, H, Dh) with ``heads``, else (..., S, Dh).  The
+    rotation reads its cos and sin from a table cached per (S, Dh, theta,
+    device, yarn), [cos, cos] and [-sin, sin] over the Dh columns, so a
+    call is x * C + roll(x, Dh/2) * S' in float32 (each half the same two
+    products and one sum as :func:`apply_rope`'s)."""
+    dim = x.shape[-1]
+    n = x.shape[-3] if heads else x.shape[-2]
+    c, s = _rope_table(int(n), int(dim), float(theta), x.device,
+                       tuple(yarn))
+    if heads:
+        c, s = c[:, None], s[:, None]
+    xf = x.float()
+    return (xf * c + torch.roll(xf, dim // 2, -1) * s).to(x.dtype)
 
 
 # ------------------------------------------------------------------- dense

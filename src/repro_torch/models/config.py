@@ -16,6 +16,18 @@ import torch
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
+def _rope_scaling(v) -> tuple:
+    """A ``rope_scaling`` value as sorted (key, value) pairs: a mapping
+    (the published dict) or pairs already; None or empty -> ()."""
+    if not v:
+        return ()
+    items = dict(v.items() if isinstance(v, Mapping) else v)
+    kind = items.pop("type", "yarn")
+    if kind != "yarn":
+        raise ValueError(f"rope_scaling type {kind!r}: only yarn is ported")
+    return tuple(sorted((k, float(x)) for k, x in items.items()))
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str = "model"
@@ -32,6 +44,10 @@ class ModelConfig:
     qkv_bias: bool = False         # qwen2
     qk_norm: bool = False          # qwen3
     rope_theta: float = 10000.0
+    # port-only: YaRN's rope scaling as (key, value) pairs of the published
+    # ``rope_scaling`` dict ("factor", "original_max_position_embeddings",
+    # "beta_fast", "beta_slow", "mscale", "mscale_all_dim"); () = plain RoPE
+    rope_scaling: tuple = ()
     tie_embeddings: bool = False
     max_seq_len: int = 8192
 
@@ -44,6 +60,15 @@ class ModelConfig:
     n_dense_layers: int = 0        # leading dense layers (deepseek-v3: 3)
     capacity_factor: float = 1.25
     router_aux_coef: float = 0.001
+    # port-only, off by default (the reference has no such fields): the
+    # published DeepSeek routing.  ``moe_dropless`` routes every token to
+    # its top-k experts with no capacity and weights each routed row by
+    # its own gate (``models.moe``); ``norm_topk_prob`` renormalises the
+    # top-k gates to sum to 1 (the GShard path always does);
+    # ``routed_scaling_factor`` multiplies the routed experts' gates.
+    moe_dropless: bool = False
+    norm_topk_prob: bool = True
+    routed_scaling_factor: float = 1.0
 
     # --- MLA (deepseek family) ---
     mla: bool = False
@@ -98,6 +123,11 @@ class ModelConfig:
         return self.d_head if self.d_head else self.d_model // self.n_heads
 
     @property
+    def yarn(self) -> Optional[dict]:
+        """The YaRN settings as a dict, or None for plain RoPE."""
+        return dict(self.rope_scaling) if self.rope_scaling else None
+
+    @property
     def param_dtype(self) -> torch.dtype:
         return _DTYPES[self.dtype]
 
@@ -118,13 +148,20 @@ class ModelConfig:
         """A config with the fields of ``obj``: any object carrying them
         as attributes (the reference ``ModelConfig``) or a mapping such as
         ``dataclasses.asdict`` of one.  Fields ``obj`` lacks keep their
-        defaults; ``global_layers`` comes back as a tuple."""
+        defaults; ``global_layers`` comes back as a tuple, and a
+        ``rope_scaling`` mapping as its sorted (key, value) pairs (its
+        ``"type"``, "yarn", left out: YaRN is the one scaling taken)."""
         get = (obj.get if isinstance(obj, Mapping)
                else lambda k, d: getattr(obj, k, d))
         missing = object()
         kw = {}
         for f in dataclasses.fields(cls):
             v = get(f.name, missing)
-            if v is not missing:
-                kw[f.name] = tuple(v) if f.name == "global_layers" else v
+            if v is missing:
+                continue
+            if f.name == "global_layers":
+                v = tuple(v)
+            elif f.name == "rope_scaling":
+                v = _rope_scaling(v)
+            kw[f.name] = v
         return cls(**kw)

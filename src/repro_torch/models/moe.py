@@ -1,15 +1,30 @@
 """Feed-forward blocks: the dense FFN and the Mixture-of-Experts FFN of
 ``repro.models.moe`` (DeepSeek-V2/V3 family).
 
-shared experts:  always-on dense FFN(s) (deepseek: 1 (v3) / 2 (v2-lite)).
-routed experts:  top-k of E, dispatched with the GShard formulation —
+Two routing paths, chosen by ``ModelConfig.moe_dropless``:
+
+* GShard (the default, ``moe_dropless=False``): the reference's
+  capacity-bounded dispatch below, kept as it is so that every config
+  equals the reference's (ROADMAP C1);
+* dropless (``moe_dropless=True``, port-only): DeepSeek-V2's published
+  routing.  Every token goes to its top-k experts with no capacity, each
+  routed row is weighted by its own softmax gate (renormalised only with
+  ``norm_topk_prob``, times ``routed_scaling_factor``), and the experts
+  run through ``kernels.moe.routed_experts``: CUDA kernels on the card
+  (``csrc/moe.cu``) that read only the experts some token picked, their
+  plain versions on the CPU.  The rows each expert gets are added to the device counter
+  ``kernels.moe.ROWS_COUNTER`` per (layer, expert).
+
+shared experts:  always-on dense FFN(s) (deepseek: 1 (v3) / 2 (v2-lite)),
+                 matrix products outside any kernel on both paths.
+routed experts (GShard):  top-k of E, dispatched with the GShard formulation —
                  one-hot dispatch/combine tensors, capacity-bounded per
                  *group* of tokens (the dispatch tensor is (G, g, E, C)).
                  The experts run as batched matrix products over the
                  expert axis: every expert over its C slots, as the
                  reference's einsums do (no Pallas kernel there either).
 
-Router: softmax gating with top-k renormalisation + the Switch
+GShard's router: softmax gating with top-k renormalisation + the Switch
 load-balance auxiliary loss (coef cfg.router_aux_coef), logits in float32
 from a float32 router.  Ties in the top-k keep the lower expert first, as
 ``jax.lax.top_k`` does: the top-k is read off a stable descending sort.
@@ -25,6 +40,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import dispatch
+from repro_torch.kernels import moe as km
 from repro_torch.models.common import ParamSpec
 from repro_torch.models.config import ModelConfig
 
@@ -126,10 +143,14 @@ def _group_size(T: int, target: int = 512) -> int:
     return g
 
 
-def moe_apply(p, cfg: ModelConfig, x: torch.Tensor):
+def moe_apply(p, cfg: ModelConfig, x: torch.Tensor, layer: int = 0):
     """x: (B, S, D) -> (out (B, S, D) in x's dtype, aux loss float32).
-    Groups are fixed-size chunks of the flattened tokens; capacity
-    C = max(1, int(capacity_factor * K * g / E)) slots an expert a group."""
+    ``layer``: the layer's index in the model (the dropless path's row
+    counter).  GShard: groups are fixed-size chunks of the flattened
+    tokens; capacity C = max(1, int(capacity_factor * K * g / E)) slots
+    an expert a group."""
+    if cfg.moe_dropless:
+        return _moe_dropless(p, cfg, x, layer)
     B, S, D = x.shape
     E, K = cfg.n_routed_experts, cfg.top_k
     T = B * S
@@ -158,3 +179,26 @@ def moe_apply(p, cfg: ModelConfig, x: torch.Tensor):
     if "shared" in p:
         out = out + ffn_apply(p["shared"], x, cfg.act)
     return out.to(dt), aux.mean()
+
+
+def _moe_dropless(p, cfg: ModelConfig, x: torch.Tensor, layer: int):
+    """The published routing (see the module): router logits in float32
+    from a float32 router, the routed experts' sum in float32, plus the
+    shared experts, rounded once to x's dtype.  A serving path: the aux
+    loss is 0 (DeepSeek-V2's sequence-wise balance loss is not ported, and
+    the kernels have no backward)."""
+    B, S, D = x.shape
+    E = cfg.n_routed_experts
+    xt = x.reshape(B * S, D)
+    logits = xt.to(torch.float32) @ p["router"]
+    rows = dispatch.device_counter(km.ROWS_COUNTER, (cfg.n_layers, E),
+                                   x.device)
+    w = p["experts"]
+    out, _, _ = km.routed_experts(
+        xt, logits, w["gate"], w["up"], w["down"], top_k=cfg.top_k,
+        norm_topk=cfg.norm_topk_prob, scale=cfg.routed_scaling_factor,
+        counter=rows[layer])
+    if "shared" in p:
+        out = out + ffn_apply(p["shared"], xt, cfg.act).to(torch.float32)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return out.to(x.dtype).reshape(B, S, D), aux

@@ -91,6 +91,15 @@ class TransformerModel:
                   ("moe_layers", "moe", True, self.n_moe_layers))
         return [st for st in stacks if st[3] > 0]
 
+    def _layers(self, params, cache: dict):
+        """(index in the model, params, cache, MoE?) of every layer, in
+        the order they run."""
+        i = 0
+        for key, ck, moe, _ in self._stacks():
+            for lp, lc in zip(params[key], cache[ck]):
+                yield i, lp, lc, moe
+                i += 1
+
     def param_specs(self) -> dict:
         cfg = self.cfg
         dtp = cfg.param_dtype
@@ -122,17 +131,18 @@ class TransformerModel:
                            device=resolve(device))
 
     # ----------------------------------------------------------- blocks
-    def _ffn(self, lp, h: torch.Tensor, moe: bool):
-        """h + the layer's FFN (dense or MoE) -> (h, aux loss or None)."""
+    def _ffn(self, lp, h: torch.Tensor, moe: bool, layer: int = 0):
+        """h + the layer's FFN (dense or MoE) -> (h, aux loss or None);
+        ``layer`` is the layer's index in the model."""
         cfg = self.cfg
         xn = apply_norm(lp["ln2"], cfg, h)
         if moe:
-            f, aux = moe_apply(lp["ffn"], cfg, xn)
+            f, aux = moe_apply(lp["ffn"], cfg, xn, layer)
             return h + f, aux
         return h + ffn_apply(lp["ffn"], xn, cfg.act), None
 
     def _block(self, lp, x: torch.Tensor, positions: torch.Tensor,
-               moe: bool, prefix_len: int = 0):
+               moe: bool, prefix_len: int = 0, layer: int = 0):
         """One layer of the forward -> (x, aux float32 scalar)."""
         cfg = self.cfg
         xn = apply_norm(lp["ln1"], cfg, x)
@@ -142,7 +152,7 @@ class TransformerModel:
             a = attn.gqa_forward(lp["attn"], cfg, xn, positions,
                                  window=cfg.sliding_window,
                                  prefix_len=prefix_len)
-        x, aux = self._ffn(lp, x + a, moe)
+        x, aux = self._ffn(lp, x + a, moe, layer)
         if aux is None:
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return x, aux
@@ -176,11 +186,13 @@ class TransformerModel:
         positions = torch.arange(St, device=x.device)[None].expand(B, St)
         layer = remat(self._block, cfg.remat_policy)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        i = 0
         for key, _, moe, _ in self._stacks():
             stack_aux = torch.zeros((), dtype=torch.float32, device=x.device)
             for lp in params[key]:
-                x, a = layer(lp, x, positions, moe, self.prefix)
+                x, a = layer(lp, x, positions, moe, self.prefix, i)
                 stack_aux = stack_aux + a
+                i += 1
             aux = aux + stack_aux
         x = apply_norm(params["final_norm"], cfg, x)
         if self.prefix:
@@ -260,7 +272,7 @@ class TransformerModel:
                 for _, ck, _, n in self._stacks()}
 
     def _decode_layer(self, lp, lc, x: torch.Tensor, pos,
-                      moe: bool) -> torch.Tensor:
+                      moe: bool, layer: int = 0) -> torch.Tensor:
         cfg = self.cfg
         xn = apply_norm(lp["ln1"], cfg, x)
         if cfg.mla:
@@ -268,7 +280,7 @@ class TransformerModel:
         else:
             a, _ = attn.gqa_decode(lp["attn"], cfg, xn, lc, pos,
                                    window=cfg.sliding_window)
-        return self._ffn(lp, x + a, moe)[0]
+        return self._ffn(lp, x + a, moe, layer)[0]
 
     def decode_step(self, params, cache: dict, tokens: torch.Tensor, pos):
         """tokens (B,1), pos absolute text position -> (logits (B,1,V),
@@ -284,9 +296,8 @@ class TransformerModel:
             pos = pos + self.prefix
         if not cfg.mla:             # one position tensor for every layer
             pos = attn.decode_position(pos, x.device)
-        for key, ck, moe, _ in self._stacks():
-            for lp, lc in zip(params[key], cache[ck]):
-                x = self._decode_layer(lp, lc, x, pos, moe)
+        for i, lp, lc, moe in self._layers(params, cache):
+            x = self._decode_layer(lp, lc, x, pos, moe, i)
         x = apply_norm(params["final_norm"], cfg, x)
         return self._logits(params, x), cache
 
@@ -303,15 +314,14 @@ class TransformerModel:
         x = F.embedding(tokens, params["embed"])
         if cfg.family == "vlm":
             x = self._gemma_scale(x)
-        for key, ck, moe, _ in self._stacks():
-            for lp, lc in zip(params[key], cache[ck]):
-                xn = apply_norm(lp["ln1"], cfg, x)
-                if cfg.mla:
-                    a, _ = attn.mla_prefill(lp["attn"], cfg, xn, lc)
-                else:
-                    a, _ = attn.gqa_prefill(lp["attn"], cfg, xn, lc,
-                                            window=cfg.sliding_window,
-                                            pos_offset=self.prefix)
-                x = self._ffn(lp, x + a, moe)[0]
+        for i, lp, lc, moe in self._layers(params, cache):
+            xn = apply_norm(lp["ln1"], cfg, x)
+            if cfg.mla:
+                a, _ = attn.mla_prefill(lp["attn"], cfg, xn, lc)
+            else:
+                a, _ = attn.gqa_prefill(lp["attn"], cfg, xn, lc,
+                                        window=cfg.sliding_window,
+                                        pos_offset=self.prefix)
+            x = self._ffn(lp, x + a, moe, i)[0]
         x = apply_norm(params["final_norm"], cfg, x[:, -1:, :])
         return self._logits(params, x), cache
