@@ -3209,7 +3209,8 @@ class ModelCalls:
 
 
 def exec_launch_problems(sites, n_layers: int, fused: bool, calls: dict,
-                         launches: dict, *, graphed: bool = False) -> list:
+                         launches: dict, *, graphed: bool = False,
+                         captures: int | None = None) -> list:
     """What is wrong with one run's launches, from the model calls it
     made: each layer launches the prefill site once a prefill call and
     the decode site once a decode step, nothing else launches, the loop
@@ -3217,17 +3218,27 @@ def exec_launch_problems(sites, n_layers: int, fused: bool, calls: dict,
     decode step a ``decode_step`` call; a fused mode runs SERVE_NEW - 1
     a prefill call (a group, every request asking for SERVE_NEW tokens)
     and calls ``decode_step`` for each of them, or, where its groups
-    replay a CUDA graph of the step (``graphed``), for two (step 1 and
-    the capture)."""
+    replay a CUDA graph of the step (``graphed``), for two in a group
+    that captured the graph (step 1 and the capture) and none in one
+    that replayed a graph its lane kept: two a capture (``captures``,
+    the run's count), or, with no count, an even number, two a group at
+    most."""
     problems = []
     if (calls["prefill"] > 0) != fused:
         problems.append(f"{calls['prefill']} prefill calls")
     steps = calls["decode_step"]
     if fused:
         steps = calls["prefill"] * (SERVE_NEW - 1)
-        want_calls = calls["prefill"] * (2 if graphed else SERVE_NEW - 1)
-        if calls["decode_step"] != want_calls:
-            problems.append(f"{calls['decode_step']} decode_step calls, "
+        got = calls["decode_step"]
+        if not graphed:
+            want_calls = calls["prefill"] * (SERVE_NEW - 1)
+        elif captures is not None:
+            want_calls = 2 * captures
+        else:
+            want_calls = (f"an even number up to {2 * calls['prefill']}"
+                          if got % 2 or got > 2 * calls["prefill"] else got)
+        if got != want_calls:
+            problems.append(f"{got} decode_step calls, "
                             f"expected {want_calls}")
     if steps <= 0:
         problems.append("no decode step")
@@ -3247,6 +3258,14 @@ def exec_graphed(model, params) -> bool:
     from repro_torch.runtime.serve_executor import FusedGenerator
     return FusedGenerator(model).graphed(first_tensor(params).device,
                                          SERVE_NEW - 1)
+
+
+def exec_captures() -> int:
+    """Graph captures since the launch counts were last set to 0 (the
+    serving executor's ``GRAPH_CAPTURES`` event)."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.runtime.serve_executor import GRAPH_CAPTURES
+    return dispatch.events(GRAPH_CAPTURES)
 
 
 def exec_serve(ex, reqs, calls: ModelCalls, **kw) -> tuple:
@@ -3312,7 +3331,7 @@ def exec_mode(model, params, calls: ModelCalls, mode, sites) -> dict:
             fail(f"{cfg.name} {label}: the run hung")
         problems = exec_launch_problems(
             sites, cfg.n_layers, mode[1], n, launches,
-            graphed=exec_graphed(model, params))
+            graphed=exec_graphed(model, params), captures=exec_captures())
         if problems:
             fail(f"{cfg.name} {label}: {problems}")
         if failing and (st.n_duplicates < 1 or 1 not in ex.dead):
@@ -3396,7 +3415,7 @@ def exec_cross_mode(dev, arch: str) -> dict:
         st, wall, launches, n = exec_serve(ex, reqs, calls)
         problems = exec_launch_problems(
             EXEC_SITES[arch], cfg.n_layers, mode[1], n, launches,
-            graphed=exec_graphed(model, params))
+            graphed=exec_graphed(model, params), captures=exec_captures())
         if st.hung or problems:
             fail(f"{arch} float32 {exec_label(mode)}: hung={st.hung} "
                  f"{problems}")

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """The serving executor's CUDA graph of the decode step, on the card:
 olmo-1b at full width and depth in bfloat16, its decode loop walked from
-Python (eager) against one graph a request group replayed (graphed).
+Python (eager) against the graphs each lane keeps across request groups
+(graphed).
 
     python3 scripts/torch_decode_graph.py [--seed 0] [--threads 1,4]
 
@@ -22,18 +23,27 @@ Prints one JSON object a line, ``kind`` first:
   * ``serve`` at each thread count and mode: one threaded rDLB ``serve``
     of the requests (FAC, rDLB on, no failure, the flight recorder on):
     seconds, host ms a step (``EV_STEP`` walls; eager steps and replays
-    apart), capture ms (``EV_GRAPH`` walls: capture and instantiation),
-    ``graph_step_share`` (sum of ``EV_GRAPH`` sizes over the number of
-    ``EV_STEP`` rows), ``flash_decode`` launches against layers x steps
-    and ``flash_attention`` launches against layers x prefills;
+    apart), captures and hits (``EV_GRAPH`` rows with detail "capture"
+    and "hit"), capture ms (the captures' walls: capture and
+    instantiation), ``graph_step_share`` (sum of ``EV_GRAPH`` sizes over
+    the number of ``EV_STEP`` rows), ``flash_decode`` launches against
+    layers x steps and ``flash_attention`` launches against layers x
+    prefills.  Modes: ``eager`` (a fresh cache of S + max_new slots a
+    group, every step from Python), ``kept_eager`` (the lanes' kept
+    caches of ``cache_capacity(S + max_new)`` slots, every step from
+    Python: a stand-in capture that replays eagerly) and ``graphed``;
   * ``tokens`` at each thread count: the graphed serve's tokens against
-    the eager serve's, each differing request with its ``max_gap`` (the
-    model's best logit minus the served token's, teacher-forced in
-    bfloat16, largest over the request's positions);
+    the ``kept_eager`` serve's (the same shapes: equal bit for bit) and
+    the ``eager`` serve's, equal where one CTA reads a row's slots both
+    ways (``flash_decode``'s split is a function of the cache's slots);
+    each differing request with its ``max_gap`` (the model's best logit
+    minus the served token's, teacher-forced in bfloat16, largest over
+    the request's positions);
   * ``repeat``: the graphed serve at the most threads run again on fresh
-    threads (``--repeat`` times), with the device memory reserved and the
-    peak allocated after each (captures reuse their lane's memory pool,
-    so reserved memory stays flat once every lane has one);
+    threads (``--repeat`` times), with its captures and hits, the lanes'
+    kept (rows, capacity) states, and the device memory reserved and the
+    peak allocated after each (a lane captures each (rows, capacity)
+    once, so a serve without a capture reserves nothing);
   * ``device``: one group (prompt 128, 32 new tokens) on one thread: host
     and device ms of an eager step and of a replay (CUDA events around
     each), capture and instantiate ms apart, and ``torch.profiler``'s
@@ -42,8 +52,9 @@ Prints one JSON object a line, ``kind`` first:
     ``flash_decode`` kernels found against layers x steps, its device ms
     a launch inside the graph, kernel ms a replay;
 
-and last ``{"ok": ...}``: tokens equal, launch counts equal, every
-replayed kernel seen by the profiler.
+and last ``{"ok": ...}``: tokens equal, launch counts equal, one
+capture a lane and (rows, capacity), reserved memory flat over repeats
+without a capture, every replayed kernel seen by the profiler.
 """
 
 from __future__ import annotations
@@ -70,6 +81,8 @@ from repro_torch.core import trace as trc  # noqa: E402
 from repro_torch.kernels import dispatch  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.runtime import RDLBServeExecutor, Request  # noqa: E402
+from repro_torch.kernels.flash_attention import decode_splits  # noqa: E402
+from repro_torch.runtime import serve_executor  # noqa: E402
 from repro_torch.runtime.serve_executor import FusedGenerator  # noqa: E402
 
 N_REQUESTS = 16
@@ -110,6 +123,15 @@ def mix(seed: int, vocab: int) -> list:
     new = rng.integers(8, 33, N_REQUESTS)
     return [(rng.integers(0, vocab, size=int(s)).astype(np.int32), int(n))
             for s, n in zip(lens, new)]
+
+
+def one_cta(req) -> bool:
+    """Whether ``flash_decode`` reads a row of this request's group as one
+    CTA both from a fresh cache of S + max_new slots and from the kept
+    cache of ``cache_capacity`` slots: then the two give the same bits."""
+    total = len(req[0]) + req[1]
+    return decode_splits(serve_executor.cache_capacity(total)) == 1 == (
+        decode_splits(total))
 
 
 def ms(xs) -> float | None:
@@ -197,16 +219,40 @@ def host_profile(model, params, threads: int, seed: int) -> dict:
 
 
 # -------------------------------------------------------------------- serve
+class EagerGraph:
+    """Stands in for a CUDA graph: a replay runs the step eagerly."""
+
+    def __init__(self, step):
+        self.replay = step
+
+
+def eager_capture(step, lane):
+    """A capture that keeps the step to run eagerly, its launches counted
+    as they run."""
+    return EagerGraph(step), dispatch.Tally()
+
+
+def kept_states() -> int:
+    """(rows, capacity) states with a graph, over every lane."""
+    return sum(k.graph is not None for lanes in
+               serve_executor._free_lanes.values() for ln in lanes
+               for k in ln.kept.values())
+
+
 def serve(cfg, model, params, reqs: list, threads: int,
-          graphed: bool) -> tuple[dict, dict]:
+          mode: str) -> tuple[dict, dict]:
     spec = api.serve_spec(technique="FAC", n_workers=threads,
                           rdlb_enabled=True, threaded=True)
     spec = spec.override("execution.trace", True)
     ex = RDLBServeExecutor(model, params, spec=spec)
-    if not graphed:
+    if mode == "eager":
         ex._fused.graphed = lambda device, steps: False
     kept = []
-    run = api.run
+    run, capture, lanes = api.run, serve_executor._capture, None
+    if mode == "kept_eager":            # lanes of their own, dropped after
+        lanes = serve_executor._free_lanes
+        serve_executor._free_lanes = {}
+        serve_executor._capture = eager_capture
 
     def keep(s, eng):
         kept.append(run(s, eng))
@@ -219,11 +265,16 @@ def serve(cfg, model, params, reqs: list, threads: int,
     try:
         stats = ex.serve(rs)
     finally:
-        api.run = run
+        api.run, serve_executor._capture = run, capture
+        if lanes is not None:
+            serve_executor._free_lanes = lanes
     wall = time.perf_counter() - t0
     tr = kept[-1].trace
     steps = np.flatnonzero(tr.kind == trc.EV_STEP)
     graphs = np.flatnonzero(tr.kind == trc.EV_GRAPH)
+    hits = np.array([g for g in graphs if tr.details.get(int(g)) == "hit"],
+                    dtype=np.int64)
+    captures = np.setdiff1d(graphs, hits)
     replay = np.zeros(len(tr.kind), dtype=bool)
     for g in graphs:
         replay |= ((tr.wid == tr.wid[g]) & (tr.seq == tr.seq[g])
@@ -234,7 +285,7 @@ def serve(cfg, model, params, reqs: list, threads: int,
     fd = dispatch.launches("flash_decode")
     fa = dispatch.launches("flash_attention")
     out = dict(
-        threads=threads, mode="graphed" if graphed else "eager",
+        threads=threads, mode=mode,
         seconds=wall, hung=stats.hung, duplicates=stats.n_duplicates,
         groups=int((tr.kind == trc.EV_GROUP).sum()), steps=n_steps,
         step_ms=ms(tr.dt[steps]),
@@ -243,9 +294,12 @@ def serve(cfg, model, params, reqs: list, threads: int,
         step_cpu_over_wall=float(tr.aux[steps].sum() / 1e6
                                  / tr.dt[steps].sum()),
         prefill_ms=ms(tr.dt[tr.kind == trc.EV_PREFILL]),
-        captures=len(graphs), capture_ms=ms(tr.dt[graphs]),
-        capture_cpu_ms=(float(tr.aux[graphs].mean()) / 1e3
-                        if len(graphs) else None),
+        captures=len(captures), hits=len(hits),
+        counted_captures=dispatch.events(serve_executor.GRAPH_CAPTURES),
+        counted_hits=dispatch.events(serve_executor.GRAPH_HITS),
+        capture_ms=ms(tr.dt[captures]),
+        capture_cpu_ms=(float(tr.aux[captures].mean()) / 1e3
+                        if len(captures) else None),
         graph_step_share=(float(tr.size[graphs].sum()) / n_steps
                           if n_steps else None),
         flash_decode_launches=fd, layers_x_steps=cfg.n_layers * n_steps,
@@ -284,20 +338,26 @@ def device_timing(cfg, model, params, seed: int) -> dict:
     prompt = torch.randint(0, cfg.vocab_size, (1, S), generator=g).to(dev)
     out = {}
     with torch.inference_mode():
-        # a graphed FusedGenerator call under the profiler: the graph is
-        # captured and replayed while the profiler runs, as in a traced
-        # benchmark loop
+        # graphed FusedGenerator calls under the profiler, as in a traced
+        # benchmark loop: on a fresh lane the graph is captured and
+        # replayed while the profiler runs, then a second call replays
+        # the graph the lane kept
         gen = FusedGenerator(model)
         gen(params, prompt.cpu().numpy(), new)              # warm
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            gen(params, prompt.cpu().numpy(), new)
-            torch.cuda.synchronize()
-        ev = kernel_events(prof)
-        fd = [t for n, t in ev if "flash_decode" in n]
-        out["under_profiler"] = dict(
-            steps=new - 1, flash_decode_kernels=len(fd),
-            layers_x_steps=cfg.n_layers * (new - 1))
+        lanes, serve_executor._free_lanes = serve_executor._free_lanes, {}
+        try:
+            for label in ("under_profiler", "under_profiler_hit"):
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    gen(params, prompt.cpu().numpy(), new)
+                    torch.cuda.synchronize()
+                fd = [t for n, t in kernel_events(prof)
+                      if "flash_decode" in n]
+                out[label] = dict(steps=new - 1,
+                                  flash_decode_kernels=len(fd),
+                                  layers_x_steps=cfg.n_layers * (new - 1))
+        finally:
+            serve_executor._free_lanes = lanes
 
         cache = model.init_cache(1, S + new, device=dev)
         logits, _ = model.prefill(params, cache, prompt)
@@ -388,40 +448,58 @@ def main(argv=None) -> int:
     ok = True
     for t in threads:
         emit("host_profile", **host_profile(model, params, t, args.seed))
-    serve(cfg, model, params, reqs[:4], max(threads), True)     # warm
+    serve(cfg, model, params, reqs[:4], max(threads), "graphed")  # warm
     for t in threads:
         runs = {}
-        for graphed in (False, True):
-            rec, toks = serve(cfg, model, params, reqs, t, graphed)
+        for mode in ("eager", "kept_eager", "graphed"):
+            rec, toks = serve(cfg, model, params, reqs, t, mode)
             emit("serve", **rec)
             ok &= (rec["flash_decode_launches"] == rec["layers_x_steps"]
                    and rec["flash_attention_launches"]
-                   == rec["layers_x_prefills"] and not rec["hung"])
-            runs[graphed] = toks
-        diff = [rid for rid in runs[False]
-                if not np.array_equal(runs[False][rid], runs[True][rid])]
-        emit("tokens", threads=t, requests=len(runs[False]),
-             equal=len(runs[False]) - len(diff),
-             differ=[dict(rid=rid, new=len(runs[True][rid]),
-                          first=int(np.argmax(runs[False][rid]
-                                              != runs[True][rid])),
-                          max_gap_graphed=max_gap(model, params,
-                                                  reqs[rid][0],
-                                                  runs[True][rid]),
-                          max_gap_eager=max_gap(model, params, reqs[rid][0],
-                                                runs[False][rid]))
-                     for rid in diff])
-        ok &= not diff
+                   == rec["layers_x_prefills"] and not rec["hung"]
+                   and rec["counted_captures"] == rec["captures"]
+                   and rec["counted_hits"] == rec["hits"])
+            runs[mode] = toks
+        got = runs["graphed"]
+
+        def differ(base):
+            return [dict(rid=rid, new=len(got[rid]),
+                         one_cta=one_cta(reqs[rid]),
+                         first=int(np.argmax(runs[base][rid] != got[rid])),
+                         max_gap_graphed=max_gap(model, params, reqs[rid][0],
+                                                 got[rid]),
+                         max_gap_base=max_gap(model, params, reqs[rid][0],
+                                              runs[base][rid]))
+                    for rid in got
+                    if not np.array_equal(runs[base][rid], got[rid])]
+        same_shapes, fresh = differ("kept_eager"), differ("eager")
+        emit("tokens", threads=t, requests=len(got),
+             differ_kept_eager=same_shapes, differ_eager=fresh,
+             one_cta_requests=sum(one_cta(r) for r in reqs))
+        ok &= not same_shapes and not any(d["one_cta"] for d in fresh)
+    before = kept_states()
+    captured = 0
+    reserved = None
     for i in range(args.repeat):
-        rec, _ = serve(cfg, model, params, reqs, max(threads), True)
-        emit("repeat", index=i, **{k: rec[k] for k in (
-            "seconds", "step_ms", "capture_ms", "graph_step_share",
-            "memory_reserved_gb", "memory_peak_gb")})
+        rec, _ = serve(cfg, model, params, reqs, max(threads), "graphed")
+        captured += rec["captures"]
+        emit("repeat", index=i, kept_states=kept_states(),
+             **{k: rec[k] for k in (
+                 "seconds", "step_ms", "captures", "hits", "capture_ms",
+                 "graph_step_share", "memory_reserved_gb",
+                 "memory_peak_gb")})
+        if not rec["captures"] and reserved is not None:
+            ok &= rec["memory_reserved_gb"] == reserved
+        reserved = rec["memory_reserved_gb"]
+    # each capture adds a (lane, rows, capacity) state: none is captured
+    # twice
+    ok &= kept_states() - before == captured
     dev = device_timing(cfg, model, params, args.seed)
     emit("device", **dev)
     ok &= (dev["flash_decode_kernels"] == dev["layers_x_replays"]
-           and dev["under_profiler"]["flash_decode_kernels"]
-           == dev["under_profiler"]["layers_x_steps"])
+           and all(dev[k]["flash_decode_kernels"]
+                   == dev[k]["layers_x_steps"]
+                   for k in ("under_profiler", "under_profiler_hit")))
     emit("ok", ok=bool(ok), card=card())
     return 0 if ok else 1
 

@@ -23,8 +23,12 @@ and prints, as the last line, one JSON object with
     of a group's wall that its prefill, steps and capture cover, and the
     ms of a group before its prefill and after its last span;
     graph_step_share (the share of decode steps that replayed a CUDA
-    graph: the ``EV_GRAPH`` rows' sizes over the ``EV_STEP`` rows) and
-    capture_ms (mean ``EV_GRAPH`` wall: capture and instantiation);
+    graph, captured in their group or kept from an earlier one: the
+    ``EV_GRAPH`` rows' sizes over the ``EV_STEP`` rows), graph_hit_share
+    (the graphed groups that replayed a kept graph: ``EV_GRAPH`` rows
+    with detail "hit" over all of them), captures and hits, and
+    capture_ms (mean wall of the capturing ``EV_GRAPH`` rows: capture
+    and instantiation);
   * ``harness``: the run's own metrics (``decode_step_ms`` among them),
     its idle-gap breakdown and the share of it charged to the harness's
     decode-step and prefill labels;
@@ -78,6 +82,11 @@ def span_readings(traces: list, dev: list | None, sites) -> dict:
         dts = np.concatenate([t.dt[t.kind == kind] for t in traces])
         return 1e3 * float(dts.mean()) if len(dts) else None
 
+    def graph_rows(t, hit: bool):
+        return np.array([i for i in np.flatnonzero(t.kind == trc.EV_GRAPH)
+                         if (t.details.get(int(i)) == "hit") is hit],
+                        dtype=np.int64)
+
     cpu = sum(float(t.aux[t.kind == trc.EV_GROUP].sum()) / 1e6
               for t in traces)
     wall = sum(t.span()[1] - t.span()[0] for t in traces)
@@ -103,9 +112,15 @@ def span_readings(traces: list, dev: list | None, sites) -> dict:
     least = int(np.argmin(cover)) if cover else None
     n_steps = int(sum((t.kind == trc.EV_STEP).sum() for t in traces))
     replayed = int(sum(t.size[t.kind == trc.EV_GRAPH].sum() for t in traces))
+    hits = sum(len(graph_rows(t, True)) for t in traces)
+    capture_dt = np.concatenate([t.dt[graph_rows(t, False)] for t in traces])
+    graphed = hits + len(capture_dt)
     out = dict(step_span_ms=mean_ms(trc.EV_STEP),
                graph_step_share=replayed / n_steps if n_steps else None,
-               capture_ms=mean_ms(trc.EV_GRAPH),
+               graph_hit_share=hits / graphed if graphed else None,
+               captures=len(capture_dt), hits=hits,
+               capture_ms=(1e3 * float(capture_dt.mean())
+                           if len(capture_dt) else None),
                prefill_span_ms=mean_ms(trc.EV_PREFILL),
                host_cpu_share=100.0 * cpu / wall if wall else None,
                tail_wait_share=(100.0 * float(start[tail].sum())

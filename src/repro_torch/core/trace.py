@@ -124,9 +124,12 @@ TRACE_VERSION = 1
 #                (decode_step, argmax, the token's write; or a replay of
 #                the group's CUDA graph of them): size = padded rows.
 #   EV_GRAPH     ``FusedGenerator``'s capture of a group's decode step
-#                into a CUDA graph, instantiation included: size = the
-#                steps that replay it, so sum(size) / count(EV_STEP) is
-#                the share of steps replayed.
+#                into a CUDA graph, instantiation included (detail
+#                "capture"), or a group's replay of a graph its lane kept
+#                from an earlier group, from writing the static token and
+#                position (detail "hit"): size = the group's steps that
+#                replay a graph, so sum(size) / count(EV_STEP) is the
+#                share of steps replayed.
 (EV_ASSIGN, EV_REISSUE, EV_EXEC, EV_REPORT, EV_COMMIT, EV_DEATH,
  EV_FREEZE, EV_THAW, EV_CHAOS, EV_DECISION, EV_FF_SPAN,
  EV_GROUP, EV_PREFILL, EV_STEP, EV_GRAPH) = range(15)

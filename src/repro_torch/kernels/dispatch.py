@@ -14,7 +14,9 @@ per variant.
 A site may also keep an int64 counter on the device (:func:`device_counter`:
 the MoE layer's routed rows per (layer, expert)), which its kernels add to
 without waiting for the host and which a run reads only when it is over.
-:func:`reset_launches` sets those to 0 too.
+:func:`reset_launches` sets those to 0 too, and the host counters of
+program events that are not launches (:func:`count_event`: the serving
+executor's graph captures and kept-graph hits).
 
 A launch made while its thread captures a CUDA graph runs nothing: it is
 counted into the thread's :class:`Tally` (:func:`capturing`), and the
@@ -39,6 +41,7 @@ _STATUS: dict[str, dict] = {}
 _LAUNCHES: dict[str, int] = {}
 _VARIANTS: dict[str, dict[str, int]] = {}
 _COUNTERS: dict[str, torch.Tensor] = {}
+_EVENTS: dict[str, int] = {}
 _local = threading.local()
 
 
@@ -121,6 +124,19 @@ def variant_launches(site: str) -> dict[str, int]:
         return dict(_VARIANTS.get(site, {}))
 
 
+def count_event(name: str) -> None:
+    """Add one to the host counter ``name`` of a program event."""
+    with _lock:
+        _EVENTS[name] = _EVENTS.get(name, 0) + 1
+
+
+def events(name: str | None = None):
+    """Count of one program event (0 if never counted), or {name: count}
+    for all."""
+    with _lock:
+        return _EVENTS.get(name, 0) if name is not None else dict(_EVENTS)
+
+
 def device_counter(name: str, shape: tuple, device) -> torch.Tensor:
     """The int64 counter ``name`` of ``shape`` on ``device``, made with
     zeros the first time it is asked for there in that shape (a new shape
@@ -146,9 +162,10 @@ def device_counters() -> dict[str, torch.Tensor]:
 
 
 def reset_launches() -> None:
-    """Set every launch count, and every device counter, to 0."""
+    """Set every launch count, event count and device counter to 0."""
     with _lock:
         _LAUNCHES.clear()
         _VARIANTS.clear()
+        _EVENTS.clear()
         for t in _COUNTERS.values():
             t.zero_()

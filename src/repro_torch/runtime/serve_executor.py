@@ -18,11 +18,13 @@ a fixed order, so duplicates give the same tokens bit for bit).
     in one full-sequence pass, then runs max_new steps of decode_step +
     greedy argmax on the device with the token fed straight back; the
     tokens reach the host once, at the end of the group.  On the card a
-    dense GQA model's group captures its decode step in one CUDA graph
-    and replays it for the group's later steps
-    (:meth:`FusedGenerator.graphed`).  ``fused_decode=False`` walks every
-    position, prompt included, through ``decode_step`` with the argmax on
-    the host (:func:`greedy_decode_group`, the per-token baseline).
+    dense GQA model's group replays a CUDA graph of its decode step
+    (:meth:`FusedGenerator.graphed`), kept with its cache on a side
+    stream across groups of one (rows, cache capacity), so a group
+    captures only where no such graph is kept.  ``fused_decode=False``
+    walks every position, prompt included, through ``decode_step`` with
+    the argmax on the host (:func:`greedy_decode_group`, the per-token
+    baseline).
   * THREADED MODE: replicas run as OS threads; rDLB duplicates race their
     originals in wall-clock time.
   * PROCESS MODE: replicas are worker processes
@@ -33,10 +35,10 @@ a fixed order, so duplicates give the same tokens bit for bit).
   * SPANS: inside a traced threaded run (``ExecutionSpec.trace``) the
     engine makes the replica's chunk the thread's
     :func:`repro_torch.core.trace.current` context, and each request
-    group, prefill, decode step and graph capture lands on the engine's
-    flight recorder as an EV_GROUP / EV_PREFILL / EV_STEP / EV_GRAPH row
-    with its wall and thread CPU time; no span synchronises with the
-    device.
+    group, prefill, decode step and graph capture or kept-graph hit lands
+    on the engine's flight recorder as an EV_GROUP / EV_PREFILL / EV_STEP
+    / EV_GRAPH row with its wall and thread CPU time; no span
+    synchronises with the device.
 """
 
 from __future__ import annotations
@@ -121,58 +123,134 @@ def greedy_decode_group(model, params, decode_step: Callable,
 
 
 #: fewest decode steps a group needs for :class:`FusedGenerator` to
-#: capture its step in a CUDA graph: step 1 runs eagerly, the capture runs
-#: nothing, and the graph then replays the group's other steps
+#: replay a CUDA graph of its step: a group that captures runs step 1
+#: eagerly, the capture runs nothing, and the graph replays the rest
 GRAPH_MIN_STEPS = 3
+#: fewest slots of a graphed group's KV cache (:func:`cache_capacity`)
+CAPACITY_FLOOR = 64
+#: host counters (``kernels.dispatch.events``) of graphed groups that
+#: replayed a graph kept from an earlier group, and of those that captured
+GRAPH_HITS = "graph_hit"
+GRAPH_CAPTURES = "graph_capture"
 
 _lanes_lock = threading.Lock()
 _free_lanes: dict = {}
 
 
+def cache_capacity(total: int) -> int:
+    """KV-cache slots of a graphed group of ``total`` = S + max_new
+    positions: the next power of two, at least :data:`CAPACITY_FLOOR`.
+    A function of the group's shape alone, so a request meets the same
+    kernel shapes, and gets the same tokens bit for bit, whichever lane
+    and group serve it."""
+    return max(CAPACITY_FLOOR, _pad_pow2(total))
+
+
+class _Kept:
+    """What a lane keeps for one (rows, capacity): the KV cache its groups
+    prefill into, the static input token and device position the decode
+    step reads, and, once captured, the step's graph with the launches
+    counted while capturing it.
+
+    The cache is never cleared between groups.  A written slot holds the
+    position written there; a group's prefill and each of its steps write
+    their slot before the step reads, and a step reads only slots holding
+    a position in (pos - window, pos], which this group has written, so a
+    slot left over from an earlier group never reads as valid."""
+
+    def __init__(self, model, rows: int, capacity: int, dev: torch.device):
+        self.cache = model.init_cache(rows, capacity, device=dev)
+        self.tok = torch.zeros((rows, 1), dtype=torch.int64, device=dev)
+        self.pos = torch.zeros((), dtype=torch.int32, device=dev)
+        self.graph = None
+        self.tally: Optional[dispatch.Tally] = None
+
+    def replay(self) -> None:
+        self.graph.replay()
+        self.tally.replayed()
+
+
 class _Lane:
-    """A side stream of one device that one group at a time captures and
-    replays on, the memory pool its captures share, and the last graph
-    captured into that pool.  The last graph is kept until the next
-    capture on the lane has begun, so the pool is never left without a
-    graph and its blocks serve every later capture on the lane instead
-    of a fresh pool a group."""
+    """A side stream of one device that one group at a time replays on,
+    the memory pool its captures share, and its :class:`_Kept` state per
+    (rows, capacity) for one (model, params), which it holds references
+    to, so no graph outlives what it reads.  A group of another model or
+    params drops the lane's state, and its pool with the graphs; replays
+    of one lane never overlap, as its groups hold it leased."""
 
     def __init__(self, dev: torch.device):
-        self.stream = torch.cuda.Stream(device=dev)
-        self.pool = torch.cuda.graph_pool_handle()
-        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        cuda = dev.type == "cuda"
+        self.stream = torch.cuda.Stream(device=dev) if cuda else None
+        self.pool = torch.cuda.graph_pool_handle() if cuda else None
+        self.owner: Optional[tuple] = None
+        self.kept: dict = {}
+
+    def _owned_by(self, model, params) -> bool:
+        return (self.owner is not None and self.owner[0] is model
+                and self.owner[1] is params)
+
+    def holds(self, model, params, key: tuple) -> bool:
+        return self._owned_by(model, params) and key in self.kept
+
+    def state(self, model, params, key: tuple, dev: torch.device) -> _Kept:
+        """The lane's state for ``key`` = (rows, capacity), made (its
+        cache allocated) if the lane has none."""
+        if not self._owned_by(model, params):
+            if self.kept and self.stream is not None:
+                # nothing it frees is in use; a pool whose graphs are all
+                # gone takes no capture again, so later ones get a new one
+                self.stream.synchronize()
+                self.pool = torch.cuda.graph_pool_handle()
+            self.kept, self.owner = {}, (model, params)
+        if key not in self.kept:
+            self.kept[key] = _Kept(model, *key, dev)
+        return self.kept[key]
 
 
 @contextlib.contextmanager
-def _lane(dev: torch.device):
-    """Lease a :class:`_Lane` of ``dev`` for the block and run the block on
-    its stream, after the current stream's work so far and before its
-    later work.  Lanes are kept for later blocks, so there are only as
-    many as blocks that ran at once (and as many cuBLAS workspaces and
-    graph pools).  The block must leave no work of its own pending on the
-    stream (it ends by copying its tokens to the host), so the next
-    lease may drop the lane's graph at once."""
-    current = torch.cuda.current_stream(dev)
+def _lane(dev: torch.device, model, params, key: tuple):
+    """Lease a :class:`_Lane` of ``dev`` for the block: a free one that
+    keeps state for ``key`` of (model, params) if there is one, else any
+    free one, else a new one.  Lanes are kept for later blocks, so there
+    are only as many as blocks that ran at once (and as many cuBLAS
+    workspaces and graph pools).  The block must leave no work of its own
+    pending on the lane (it ends by copying its tokens to the host)."""
     with _lanes_lock:
         free = _free_lanes.setdefault(dev, [])
-        lane = free.pop() if free else _Lane(dev)
+        lane = next((ln for ln in reversed(free)
+                     if ln.holds(model, params, key)), None)
+        if lane is not None:
+            free.remove(lane)
+        else:
+            lane = free.pop() if free else _Lane(dev)
+    try:
+        yield lane
+    finally:
+        with _lanes_lock:
+            _free_lanes.setdefault(dev, []).append(lane)
+
+
+@contextlib.contextmanager
+def _on(lane: _Lane):
+    """Run the block on the lane's stream, after the current stream's work
+    so far and before its later work."""
+    if lane.stream is None:
+        yield
+        return
+    current = torch.cuda.current_stream(lane.stream.device)
     lane.stream.wait_stream(current)
     try:
         with torch.cuda.stream(lane.stream):
-            yield lane
+            yield
     finally:
         current.wait_stream(lane.stream)
-        with _lanes_lock:
-            _free_lanes[dev].append(lane)
 
 
-def _capture(step: Callable[[], None], lane: _Lane) -> Callable[[], None]:
+def _capture(step: Callable[[], None], lane: _Lane) -> tuple:
     """Capture ``step`` into a CUDA graph on ``lane`` (its stream must be
     current) in the thread-local mode, since other threads keep launching
-    meanwhile, into the lane's pool -> a function that replays it.  The
-    launches counted while capturing are added once per replay
-    (``kernels.dispatch.capturing``).  The graph replaces the lane's
-    last one."""
+    meanwhile, into the lane's pool -> (graph, the launches counted while
+    capturing: ``kernels.dispatch.capturing``, to add once per replay)."""
     graph = torch.cuda.CUDAGraph()
     with dispatch.capturing() as tally:
         graph.capture_begin(pool=lane.pool,
@@ -181,12 +259,19 @@ def _capture(step: Callable[[], None], lane: _Lane) -> Callable[[], None]:
             step()
         finally:
             graph.capture_end()
-    lane.graph = graph
+    return graph, tally
 
-    def replay() -> None:
-        graph.replay()
-        tally.replayed()
-    return replay
+
+def _static_step(model, params, cache: dict, tok_in: torch.Tensor,
+                 pos: torch.Tensor) -> Callable[[], None]:
+    """One decode step as a closure over a static input token and a
+    static device position, which it advances: the step a graph
+    captures."""
+    def step() -> None:
+        logits, _ = model.decode_step(params, cache, tok_in, pos)
+        tok_in.copy_(torch.argmax(logits[:, -1, :], dim=-1)[:, None])
+        pos.add_(1)
+    return step
 
 
 class FusedGenerator:
@@ -194,9 +279,10 @@ class FusedGenerator:
     whose tokens never leave the device until the group is done.
 
     Per call (one request group):
-      1. a cache for the padded group is allocated once, for all
-         S + max_new positions, and every step writes it in place (the
-         reference donates its cache into a jitted ``lax.scan``);
+      1. a cache for the padded group, for all S + max_new positions
+         (a graphed group's is kept by its lane, below), which every step
+         writes in place (the reference donates its cache into a jitted
+         ``lax.scan``);
       2. ``model.prefill`` fills it for the S prompt positions in one
          full-sequence pass (a model without ``prefill`` — whisper —
          walks the prompt through ``decode_step`` instead);
@@ -210,22 +296,31 @@ class FusedGenerator:
     A model that declares its decode step capturable
     (``model.decode_capturable``: every layer dense GQA) runs the steps of
     3. as one closure over a static input token and a static device
-    position (:meth:`_static_steps`); every other model walks them from
-    Python at int positions.  One CUDA graph a group (:meth:`graphed`):
-    on a CUDA device and for a group of at least :data:`GRAPH_MIN_STEPS`
-    steps, on a leased side stream (:class:`_Lane`), step 1 runs the
-    closure eagerly (it builds the state a capture must not, such as the
-    cuBLAS workspace of that stream), step 2 captures it once (through
-    ``model.decode_step``, the instance's attribute, so a wrapper is
-    captured too) into the lane's memory pool, and the graph then replays
-    steps 2 .. max_new - 1.  The same closure runs either way, with the
-    same kernels and shapes, so the tokens do not change.  Launches made
-    while capturing are counted once per replay
-    (``kernels.dispatch.capturing``).
+    position (:func:`_static_step`); every other model walks them from
+    Python at int positions.  On a CUDA device, a capturable model's
+    group of at least :data:`GRAPH_MIN_STEPS` steps is graphed
+    (:meth:`graphed`): it leases a side stream (:class:`_Lane`) before
+    its prefill, and the lane keeps, per (rows, :func:`cache_capacity`
+    of S + max_new), the cache, the static token and position and the
+    step's CUDA graph across groups.  The prefill fills that cache on the
+    current stream; the steps run on the lane's stream.  A group whose
+    (rows, capacity) the lane has graphed (a hit) writes its first token
+    and S there and replays the graph from step 1; otherwise (a capture)
+    step 1 runs the closure eagerly (it builds the state a capture must
+    not, such as the cuBLAS workspace of that stream), step 2 captures it
+    once (through ``model.decode_step``, the instance's attribute, so a
+    wrapper is captured too) into the lane's pool, and the graph replays
+    steps 2 .. max_new - 1 and is kept.  The same closure runs either
+    way, with the same kernels and shapes, so the tokens do not change.
+    Launches made while capturing are counted once per replay
+    (``kernels.dispatch.capturing``); hits and captures are counted as
+    ``kernels.dispatch.events`` :data:`GRAPH_HITS` and
+    :data:`GRAPH_CAPTURES`.
 
     Under a chunk context (:func:`repro_torch.core.trace.current`) the
-    prefill, each step of 3. (a replay included) and the capture are
-    recorded as spans (EV_PREFILL, EV_STEP, EV_GRAPH).
+    prefill, each step of 3. (a replay included) and a capture or hit are
+    recorded as spans (EV_PREFILL, EV_STEP, EV_GRAPH with detail
+    "capture" or "hit").
     """
 
     def __init__(self, model):
@@ -245,10 +340,18 @@ class FusedGenerator:
         dev = _device(params)
         buf = _padded(np.asarray(prompts, dtype=np.int32))
         rows = buf.shape[0]
+        graphed = self.graphed(dev, max_new - 1)
+        key = (rows, cache_capacity(S + max_new))
         ctx = trace.current()
         mark = None
-        with torch.inference_mode():
-            cache = model.init_cache(rows, S + max_new, device=dev)
+        with torch.inference_mode(), (
+                _lane(dev, model, params, key) if graphed
+                else contextlib.nullcontext()) as lane:
+            if graphed:
+                kept = lane.state(model, params, key, dev)
+                cache = kept.cache
+            else:
+                cache = model.init_cache(rows, S + max_new, device=dev)
             tokens = torch.from_numpy(buf).to(dev)
             if ctx is not None:
                 mark = ctx.now()
@@ -266,6 +369,9 @@ class FusedGenerator:
             out[:, 0] = tok
             if ctx is not None:
                 mark = ctx.now()
+            if graphed:
+                return self._graphed_steps(params, lane, kept, tok, out, S,
+                                           ctx, mark)[:B]
             if getattr(model, "decode_capturable", False):
                 return self._static_steps(params, cache, tok, out, S, ctx,
                                           mark)[:B]
@@ -280,33 +386,50 @@ class FusedGenerator:
 
     def _static_steps(self, params, cache: dict, tok: torch.Tensor,
                       out: torch.Tensor, S: int, ctx, mark) -> np.ndarray:
-        """Steps 1 .. max_new - 1 of a capturable model's group into
-        ``out``, each the same closure over a static input token and a
-        static device position, which it advances; -> ``out`` on the
-        host.  A graphed group runs on a leased lane and replays the
-        closure's graph from step 2 on (the capture itself runs
-        nothing)."""
-        model = self.model
+        """Steps 1 .. max_new - 1 of a capturable model's group that is
+        not graphed into ``out``, each the closure of :func:`_static_step`
+        run eagerly; -> ``out`` on the host."""
+        tok_in = tok[:, None].clone()
+        pos = torch.full((), S, dtype=torch.int32, device=out.device)
+        step = _static_step(self.model, params, cache, tok_in, pos)
+        for i in range(1, out.shape[1]):
+            step()
+            out[:, i] = tok_in[:, 0]
+            if ctx is not None:           # steps follow back to back
+                mark = ctx.span(trace.EV_STEP, mark, out.shape[0])
+        return out.cpu().numpy()
+
+    def _graphed_steps(self, params, lane: _Lane, kept: _Kept,
+                       tok: torch.Tensor, out: torch.Tensor, S: int, ctx,
+                       mark) -> np.ndarray:
+        """Steps 1 .. max_new - 1 of a graphed group into ``out`` on its
+        lane's stream, over the lane's kept state: replayed from step 1 if
+        the state has a graph, else step 1 eager, step 2 captured (the
+        capture runs nothing) and replayed from there; -> ``out`` on the
+        host."""
         rows, max_new = out.shape
-        dev = out.device
-        graphed = self.graphed(dev, max_new - 1)
-        with _lane(dev) if graphed else contextlib.nullcontext() as lane:
-            tok_in = tok[:, None].clone()
-            pos = torch.full((), S, dtype=torch.int32, device=dev)
-
-            def step() -> None:
-                logits, _ = model.decode_step(params, cache, tok_in, pos)
-                tok_in.copy_(torch.argmax(logits[:, -1, :], dim=-1)[:, None])
-                pos.add_(1)
-
-            run = step
+        with _on(lane):
+            kept.tok.copy_(tok[:, None])
+            kept.pos.fill_(S)
+            step = _static_step(self.model, params, kept.cache, kept.tok,
+                                kept.pos)
+            if kept.graph is not None:
+                dispatch.count_event(GRAPH_HITS)
+                if ctx is not None:
+                    mark = ctx.span(trace.EV_GRAPH, mark, max_new - 1,
+                                    detail="hit")
             for i in range(1, max_new):
-                if graphed and i == 2:
-                    run = _capture(step, lane)
+                if kept.graph is None and i == 2:
+                    kept.graph, kept.tally = _capture(step, lane)
+                    dispatch.count_event(GRAPH_CAPTURES)
                     if ctx is not None:
-                        mark = ctx.span(trace.EV_GRAPH, mark, max_new - 2)
-                run()
-                out[:, i] = tok_in[:, 0]
+                        mark = ctx.span(trace.EV_GRAPH, mark, max_new - 2,
+                                        detail="capture")
+                if kept.graph is None:
+                    step()
+                else:
+                    kept.replay()
+                out[:, i] = kept.tok[:, 0]
                 if ctx is not None:       # steps follow back to back
                     mark = ctx.span(trace.EV_STEP, mark, rows)
             return out.cpu().numpy()

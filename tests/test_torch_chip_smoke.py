@@ -117,6 +117,23 @@ def test_exec_launch_problems():
                  {"flash_attention": 6, "flash_decode": 90})
 
 
+@pytest.mark.parametrize("captures,calls,ok", [
+    (None, 0, True), (None, 2, True), (None, 4, True), (None, 3, False),
+    (None, 6, False), (0, 0, True), (1, 2, True), (2, 4, True),
+    (1, 4, False), (0, 2, False)])
+def test_exec_launch_problems_with_kept_graphs(captures, calls, ok):
+    """A group that replays a graph its lane kept calls ``decode_step``
+    never, one that captures twice: the calls are two a capture where
+    the run counted them, else an even number, two a group at most; the
+    launches still count every step."""
+    sites, L = ("flash_attention", "flash_decode"), 3
+    launches = {"flash_attention": 6, "flash_decode": 90}
+    got = chip_smoke.exec_launch_problems(
+        sites, L, True, {"prefill": 2, "decode_step": calls}, launches,
+        graphed=True, captures=captures)
+    assert (got == []) is ok
+
+
 @pytest.fixture
 def counted_launches(monkeypatch):
     """The serving wrappers count a launch, then run their plain

@@ -776,3 +776,158 @@ def test_fused_generator_graph_equals_eager(cuda, dtype, B, threads):
     assert dispatch.launches("flash_decode") == (cfg.n_layers * (new - 1)
                                                  * threads)
     assert dispatch.status("flash_decode")["path"] == "cuda"
+
+
+def _small_dense(cuda, dtype):
+    from repro_torch.models import build_model
+    from repro_torch.models.config import ModelConfig
+    cfg = ModelConfig(family="dense", n_layers=2, d_model=256, n_heads=4,
+                      n_kv_heads=2, d_ff=512, vocab_size=512, dtype=dtype)
+    model = build_model(cfg)
+    return cfg, model, model.init(0, device=cuda)
+
+
+def _lanes(params) -> list:
+    """The serving executor's free lanes of the device ``params`` lie on
+    (its key: the device with its index)."""
+    from repro_torch.models.common import first_tensor
+    from repro_torch.runtime import serve_executor as se
+    return se._free_lanes[first_tensor(params).device]
+
+
+class _EagerGraph:
+    """Stands in for a CUDA graph: a replay runs the step eagerly."""
+
+    def __init__(self, step):
+        self.replay = step
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kept_graphs_capture_once_a_lane_and_capacity(cuda, dtype,
+                                                      monkeypatch):
+    """Groups of three (rows, capacity) keys served in turns, three
+    rounds, on one thread: one lane, one capture a key in the first
+    round and hits after it; every group's tokens those of the eager
+    walk (each capacity read by one CTA a row, as the fresh cache is, so
+    the bits agree); launches n_layers a step, replays included; reserved
+    memory the same after every round."""
+    from repro_torch.runtime import serve_executor as se
+    monkeypatch.setattr(se, "_free_lanes", {})
+    cfg, model, params = _small_dense(cuda, dtype)
+    rng = np.random.default_rng(0)
+    # (rows, S, new): capacities 64, 64, 64 at 2 rows, 128
+    shapes = [(1, 37, 9), (1, 20, 12), (2, 50, 9), (1, 90, 30)]
+    groups = [(rng.integers(0, cfg.vocab_size, size=(B, S))
+               .astype(np.int32), n) for B, S, n in shapes]
+    eager = se.FusedGenerator(model)
+    eager.graphed = lambda device, steps: False
+    want = [eager(params, p, n) for p, n in groups]
+    gen = se.FusedGenerator(model)
+    reserved = []
+    for r in range(3):
+        dispatch.reset_launches()
+        for (p, n), w in zip(groups, want):
+            np.testing.assert_array_equal(gen(params, p, n), w)
+        steps = sum(n - 1 for _, n in groups)
+        assert dispatch.launches("flash_decode") == cfg.n_layers * steps
+        assert (dispatch.events(se.GRAPH_CAPTURES),
+                dispatch.events(se.GRAPH_HITS)) == ((3, 1) if r == 0
+                                                    else (0, 4))
+        torch.cuda.synchronize()
+        reserved.append(torch.cuda.memory_reserved())
+    (lane,) = _lanes(params)
+    assert sorted(lane.kept) == [(1, 64), (1, 128), (2, 64)]
+    assert reserved[0] == reserved[1] == reserved[2]
+
+
+def test_kept_graphs_on_two_lanes_and_eager_agree(cuda, monkeypatch):
+    """A bfloat16 request whose capacity (1,024 slots) takes eight CTAs a
+    row: served on a lane, again while that lane is held (a duplicate on
+    a second lane, which captures there), then twice more (hits), and
+    on lanes whose captures replay eagerly (the eager walk of the same
+    shapes): the same tokens bit for bit every time."""
+    from repro_torch.runtime import serve_executor as se
+    monkeypatch.setattr(se, "_free_lanes", {})
+    cfg, model, params = _small_dense(cuda, "bfloat16")
+    p = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, size=(1, 700)).astype(np.int32)
+    new = 20
+    key = (1, se.cache_capacity(700 + new))
+    assert key[1] == 1024
+    gen = se.FusedGenerator(model)
+    dispatch.reset_launches()
+    first = gen(params, p, new)
+    (lane,) = _lanes(params)
+    with se._lane(lane.stream.device, model, params, key) as held:
+        assert held is lane
+        np.testing.assert_array_equal(gen(params, p, new), first)
+    assert len(_lanes(params)) == 2
+    for _ in range(2):
+        np.testing.assert_array_equal(gen(params, p, new), first)
+    assert dispatch.events(se.GRAPH_CAPTURES) == 2
+    assert dispatch.events(se.GRAPH_HITS) == 2
+    monkeypatch.setattr(se, "_free_lanes", {})
+    monkeypatch.setattr(se, "_capture", lambda step, lane: (
+        _EagerGraph(step), dispatch.Tally()))
+    np.testing.assert_array_equal(gen(params, p, new), first)
+
+
+def test_kept_graphs_under_threads(cuda, monkeypatch):
+    """Four threads serving the same groups in other orders, three times
+    over: each thread's tokens the single-thread walk's, and no lane
+    captures a key twice (captures equal the kept graphs)."""
+    import threading
+
+    from repro_torch.runtime import serve_executor as se
+    monkeypatch.setattr(se, "_free_lanes", {})
+    cfg, model, params = _small_dense(cuda, "bfloat16")
+    rng = np.random.default_rng(2)
+    groups = [(rng.integers(0, cfg.vocab_size, size=(1, S))
+               .astype(np.int32), n)
+              for S, n in ((40, 8), (100, 20), (200, 30), (16, 10))]
+    gen = se.FusedGenerator(model)
+    want = [gen(params, p, n) for p, n in groups]
+    dispatch.reset_launches()
+    got: dict = {}
+
+    def run(t):
+        order = np.random.default_rng(10 + t).permutation(len(groups))
+        for _ in range(3):
+            for i in order:
+                got[(t, int(i))] = gen(params, *groups[i])
+    pool = [threading.Thread(target=run, args=(t,)) for t in range(4)]
+    for th in pool:
+        th.start()
+    for th in pool:
+        th.join()
+    for (t, i), toks in got.items():
+        np.testing.assert_array_equal(toks, want[i])
+    kept = sum(k.graph is not None for ln in _lanes(params)
+               for k in ln.kept.values())
+    assert dispatch.events(se.GRAPH_CAPTURES) + 3 == kept
+    assert (dispatch.events(se.GRAPH_HITS)
+            + dispatch.events(se.GRAPH_CAPTURES) == 4 * 3 * len(groups))
+
+
+def test_kept_graphs_dropped_for_other_params(cuda, monkeypatch):
+    """One lane serving a float32 model, a bfloat16 one, then the first
+    again: each change of params drops the lane's graphs and its pool,
+    and the next group captures anew into a fresh pool, to the eager
+    walk's tokens."""
+    from repro_torch.runtime import serve_executor as se
+    monkeypatch.setattr(se, "_free_lanes", {})
+    a, b = _small_dense(cuda, "float32"), _small_dense(cuda, "bfloat16")
+    p = np.random.default_rng(3).integers(
+        0, 512, size=(1, 40)).astype(np.int32)
+    dispatch.reset_launches()
+    pools = []
+    for cfg, model, params in (a, b, a):
+        eager = se.FusedGenerator(model)
+        eager.graphed = lambda device, steps: False
+        np.testing.assert_array_equal(se.FusedGenerator(model)(params, p, 9),
+                                      eager(params, p, 9))
+        (lane,) = _lanes(params)
+        assert lane.owner[1] is params and len(lane.kept) == 1
+        pools.append(lane.pool)
+    assert dispatch.events(se.GRAPH_CAPTURES) == 3
+    assert pools[0] != pools[1] != pools[2]
