@@ -1268,6 +1268,7 @@ def plain_versions():
     from repro_torch.kernels import dispatch, ops
     from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels import rwkv6_scan as kw
+    from repro_torch.runtime import serve_executor
 
     def with_out(plain):
         def fn(*args, out_state=None, **kwargs):
@@ -1282,6 +1283,10 @@ def plain_versions():
             "wkv6_batched_train": kw.wkv6_batched_plain}
     saved = {name: getattr(ops, name) for name in swap}
     before = dispatch.launches()
+    # a lane's kept decode-step graph replays what it captured: drop the
+    # graphs of the kernels before the run, and those of the plain
+    # versions after it
+    serve_executor._free_lanes.clear()
     for name, fn in swap.items():
         setattr(ops, name, fn)
     try:
@@ -1289,6 +1294,7 @@ def plain_versions():
     finally:
         for name, fn in saved.items():
             setattr(ops, name, fn)
+        serve_executor._free_lanes.clear()
     if dispatch.launches() != before:
         fail("a kernel launched during the plain-version run")
 

@@ -13,7 +13,8 @@ Each kernel module holds the wrapper that launches the kernel on CUDA
 tensors, and its plain PyTorch version, which CPU tensors take;
 ``ops.py`` re-exports the CUDA wrappers and ``ref.py`` the plain
 versions the reference has oracles for.  ``_build.py`` compiles the
-sources at first use, never at import.
+sources at first use, never at import, and every wrapper launches its
+kernels through ``_build.launch``.
 """
 
 from repro_torch.kernels import ops, ref  # noqa: F401

@@ -10,8 +10,11 @@ The stale check and the compile hold an exclusive ``fcntl`` lock on
 ``build/kernels/.lock``, so processes started together on a stale tree
 (the spawned workers of ``repro_torch.cluster``) build it once: the
 first compiles, the others wait and then load what it built.
-Each C entry point returns ``cudaGetLastError()`` after its launch;
-:func:`check` raises on a non-zero code.
+Each C entry point takes the stream last and returns
+``cudaGetLastError()`` after its launch.  Every wrapper launches through
+:func:`launch`, which passes the current stream, raises through
+:func:`check` on a non-zero code and counts the launch in
+``kernels.dispatch``.
 """
 
 from __future__ import annotations
@@ -26,6 +29,10 @@ import subprocess
 import tempfile
 import threading
 import time
+
+import torch
+
+from repro_torch.kernels import dispatch
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -126,18 +133,26 @@ def library(*, rebuild: bool = False) -> ctypes.CDLL:
         return _lib
 
 
-def function(name: str, argtypes: list) -> ctypes._CFuncPtr:
-    """C entry ``name`` with its argument types set (``c_void_p`` for
-    every pointer and the stream) and an ``int`` return code."""
-    lib = library()
-    with _lock:
-        fn = _functions.get(name)
-        if fn is None:
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            _functions[name] = fn
-        return fn
+def launch(entry: str, argtypes: list, site: str, device: torch.device,
+           *args, variant: str | None = None) -> None:
+    """Call C entry ``entry`` with ``args`` and ``device``'s current
+    stream as its last argument (``argtypes`` its types: ``c_void_p`` for
+    every pointer and the stream), raise if it returned a CUDA error, and
+    count the launch of ``site`` and its ``variant`` in
+    ``kernels.dispatch``."""
+    fn = _functions.get(entry)      # the common case reads without the lock
+    if fn is None:
+        lib = library()
+        with _lock:
+            fn = _functions.get(entry)
+            if fn is None:
+                fn = getattr(lib, entry)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                _functions[entry] = fn
+    with torch.cuda.device(device):
+        check(fn(*args, torch.cuda.current_stream(device).cuda_stream), site)
+    dispatch.count_launch(site, variant)
 
 
 def check(code: int, what: str) -> None:

@@ -1,10 +1,12 @@
 """Kernel-path telemetry: which implementation ran, and how often the
 hand-written kernels were launched.
 
-Every kernel wrapper records its path here on each call: ``"cuda"`` when
-it launched its kernel on a CUDA tensor, ``"torch"`` when it ran the
-plain PyTorch version on a CPU (or ``meta``) tensor.  There is no
-fallback path: on a CUDA tensor a wrapper launches its kernel or raises.
+Every kernel wrapper records its path here on each call: ``"torch"``
+when it ran the plain PyTorch version on a CPU (or ``meta``) tensor
+(:func:`plain`), ``"cuda"`` when it launched its kernel on a CUDA tensor
+(:func:`count_launch`, which ``_build.launch`` calls after each launch).
+There is no fallback path: on a CUDA tensor a wrapper launches its
+kernel or raises.
 ``status()`` lets benchmarks and tests assert on what actually executed,
 and the launch counts let a run show that its main path went through
 the kernels.  A site with more than one kernel (flash_attention:
@@ -78,8 +80,28 @@ def record(site: str, path: str, variant: str | None = None) -> None:
     if path not in PATHS:
         raise ValueError(f"unknown kernel path {path!r}; one of {PATHS}")
     with _lock:
-        _STATUS[site] = ({"path": path} if variant is None
-                         else {"path": path, "variant": variant})
+        _record(site, path, variant)
+
+
+def _record(site: str, path: str, variant: str | None) -> None:
+    """Set ``site``'s path record; holds _lock."""
+    _STATUS[site] = ({"path": path} if variant is None
+                     else {"path": path, "variant": variant})
+
+
+def plain(device: torch.device, *sites: str) -> bool:
+    """Whether a wrapper runs its plain version on ``device``'s tensors:
+    True on :data:`PLAIN_DEVICES`, recording the "torch" path of each of
+    ``sites``; False on a CUDA device, where it launches its kernels;
+    any other device raises."""
+    if device.type in PLAIN_DEVICES:
+        with _lock:
+            for site in sites:
+                _record(site, "torch", None)
+        return True
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    return False
 
 
 def status(site: str | None = None) -> dict:
@@ -92,15 +114,17 @@ def status(site: str | None = None) -> dict:
 
 def count_launch(site: str, variant: str | None = None) -> None:
     """Add one to ``site``'s launch count (called right after a launch),
-    and to its ``variant``'s; inside :func:`capturing`, to the thread's
-    tally instead."""
+    and to its ``variant``'s, and record its "cuda" path with that
+    variant; inside :func:`capturing` the launch goes to the thread's
+    tally instead of the counts."""
     tally = getattr(_local, "tally", None)
     if tally is not None:
         key = (site, variant)
         tally.counts[key] = tally.counts.get(key, 0) + 1
-        return
     with _lock:
-        _add(site, variant, 1)
+        if tally is None:
+            _add(site, variant, 1)
+        _record(site, "cuda", variant)
 
 
 def _add(site: str, variant: str | None, n: int) -> None:

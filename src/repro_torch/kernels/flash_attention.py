@@ -228,18 +228,12 @@ def _launch(q, k, v, valid, out, *, n_heads: int, group: int,
     if D > MAX_DIM or Dv > MAX_DIM:
         raise ValueError(f"head dims up to {MAX_DIM}, got D={D} Dv={Dv}")
     ok = (valid if valid.dtype == torch.bool else valid != 0).contiguous()
-    fn = _build.function("flash_decode_launch", _ARGTYPES)
     rows, L = out.shape[0], k.shape[1]
-    dev = q.device
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        ok.data_ptr(), out.data_ptr(), DTYPE_CODES[q.dtype],
-                        rows, n_heads, group, L, D, Dv, *strides_k,
-                        *strides_v, float(scale), decode_splits(L), stream),
-                     SITE)
-    dispatch.count_launch(SITE)
-    dispatch.record(SITE, "cuda")
+    _build.launch("flash_decode_launch", _ARGTYPES, SITE, q.device,
+                  q.data_ptr(), k.data_ptr(), v.data_ptr(), ok.data_ptr(),
+                  out.data_ptr(), DTYPE_CODES[q.dtype], rows, n_heads, group,
+                  L, D, Dv, *strides_k, *strides_v, float(scale),
+                  decode_splits(L))
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -252,11 +246,8 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernel on the current stream or raise."""
     _check(q, k, v, valid, 2, 3)
     scale = scale if scale is not None else q.shape[-1] ** -0.5
-    if q.device.type in dispatch.PLAIN_DEVICES:
-        dispatch.record(SITE, "torch")
+    if dispatch.plain(q.device, SITE):
         return flash_decode_plain(q, k, v, valid, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
     out = torch.empty((q.shape[0], v.shape[-1]), dtype=q.dtype,
                       device=q.device)
     if out.numel() == 0:
@@ -285,11 +276,8 @@ def flash_decode_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if H % kv:
         raise ValueError(f"{H} query heads do not share {kv} KV heads evenly")
     scale = scale if scale is not None else D ** -0.5
-    if q.device.type in dispatch.PLAIN_DEVICES:
-        dispatch.record(SITE, "torch")
+    if dispatch.plain(q.device, SITE):
         return flash_decode_gqa_plain(q, k, v, valid, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
     out = torch.empty((B, H, v.shape[-1]), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         dispatch.record(SITE, "cuda")
@@ -452,17 +440,11 @@ def _attention_cuda(q, k, v, causal: bool, scale: float,
         dispatch.record(SITE_ATTN, "cuda")
         return out, lse
     variant = variant or attention_variant(q, k, v)
-    fn = _build.function("flash_attention_launch", _ATTN_ARGTYPES)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        out.data_ptr(), lse.data_ptr(), DTYPE_CODES[q.dtype],
-                        B, S, H, H // kv, D, Dv, int(causal),
-                        *_strides(q), *_strides(k), *_strides(v),
-                        float(scale), VARIANTS.index(variant), stream),
-                     SITE_ATTN)
-    dispatch.count_launch(SITE_ATTN, variant)
-    dispatch.record(SITE_ATTN, "cuda", variant)
+    _build.launch("flash_attention_launch", _ATTN_ARGTYPES, SITE_ATTN, dev,
+                  q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  lse.data_ptr(), DTYPE_CODES[q.dtype], B, S, H, H // kv, D,
+                  Dv, int(causal), *_strides(q), *_strides(k), *_strides(v),
+                  float(scale), VARIANTS.index(variant), variant=variant)
     return out, lse
 
 
@@ -477,12 +459,9 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
     kernel on the current stream or raise."""
     _check_attn(q, k, v)
     scale = scale if scale is not None else q.shape[-1] ** -0.5
-    if q.device.type in dispatch.PLAIN_DEVICES:
-        dispatch.record(SITE_ATTN, "torch")
+    if dispatch.plain(q.device, SITE_ATTN):
         return flash_attention_forward_plain(q, k, v, causal=causal,
                                              scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
     return _attention_cuda(q, k, v, causal, scale)
 
 

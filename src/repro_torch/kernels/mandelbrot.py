@@ -141,23 +141,15 @@ def mandelbrot(c_real: torch.Tensor, c_imag: torch.Tensor, *,
     kernel on the current stream or raise."""
     _check(c_real, c_imag, max_iters)
     dev = c_real.device
-    if dev.type in dispatch.PLAIN_DEVICES:
-        dispatch.record(SITE, "torch")
+    if dispatch.plain(dev, SITE):
         return mandelbrot_plain(c_real, c_imag, max_iters)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
     out = torch.empty(c_real.shape, dtype=torch.int32, device=dev)
     if out.numel() == 0:
         dispatch.record(SITE, "cuda")
         return out
-    fn = _build.function("mandelbrot_launch", _ARGTYPES)
     M, N = c_real.shape
     ld = c_real.stride(0) if M > 1 else N
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _build.check(fn(c_real.data_ptr(), c_imag.data_ptr(), ld,
-                        out.data_ptr(), M, N, int(max_iters), stream),
-                     "mandelbrot")
-    dispatch.count_launch(SITE)
-    dispatch.record(SITE, "cuda")
+    _build.launch("mandelbrot_launch", _ARGTYPES, SITE, dev,
+                  c_real.data_ptr(), c_imag.data_ptr(), ld, out.data_ptr(),
+                  M, N, int(max_iters))
     return out

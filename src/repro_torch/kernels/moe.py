@@ -207,30 +207,21 @@ def _routed_cuda(x, logits, w_gate, w_up, w_down, top_k, norm_topk, scale,
     gate, sgate = _segments([n, n], torch.float32, dev)
     h = torch.empty((n, Fh), dtype=x.dtype, device=dev)
     y = torch.empty((n, D), dtype=torch.float32, device=dev)
-    route = _build.function("moe_route_launch", _ROUTE_ARGTYPES)
-    gemm = _build.function("moe_gemm_launch", _GEMM_ARGTYPES)
     wg = bm // 64
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _build.check(route(logits.data_ptr(), idx.data_ptr(),
-                           rank.data_ptr(), gate.data_ptr(), offs.data_ptr(),
-                           slot.data_ptr(), sgate.data_ptr(),
-                           tiles.data_ptr(), counter.data_ptr(), T, E, top_k,
-                           bm, n_tiles, int(bool(norm_topk)), float(scale),
-                           stream), SITE_ROUTE)
-        dispatch.count_launch(SITE_ROUTE)
-        _build.check(gemm(0, x.data_ptr(), w_gate.data_ptr(),
-                          w_up.data_ptr(), h.data_ptr(), slot.data_ptr(),
-                          sgate.data_ptr(), tiles.data_ptr(), n_tiles, E, D,
-                          Fh, top_k, wg, stream), SITE_GEMM)
-        dispatch.count_launch(SITE_GEMM, var)
-        _build.check(gemm(1, h.data_ptr(), w_down.data_ptr(), None,
-                          y.data_ptr(), slot.data_ptr(), sgate.data_ptr(),
-                          tiles.data_ptr(), n_tiles, E, Fh, D, top_k, wg,
-                          stream), SITE_GEMM)
-        dispatch.count_launch(SITE_GEMM, var)
-    dispatch.record(SITE_ROUTE, "cuda")
-    dispatch.record(SITE_GEMM, "cuda", var)
+    _build.launch("moe_route_launch", _ROUTE_ARGTYPES, SITE_ROUTE, dev,
+                  logits.data_ptr(), idx.data_ptr(), rank.data_ptr(),
+                  gate.data_ptr(), offs.data_ptr(), slot.data_ptr(),
+                  sgate.data_ptr(), tiles.data_ptr(), counter.data_ptr(), T,
+                  E, top_k, bm, n_tiles, int(bool(norm_topk)), float(scale))
+    _build.launch("moe_gemm_launch", _GEMM_ARGTYPES, SITE_GEMM, dev, 0,
+                  x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
+                  h.data_ptr(), slot.data_ptr(), sgate.data_ptr(),
+                  tiles.data_ptr(), n_tiles, E, D, Fh, top_k, wg,
+                  variant=var)
+    _build.launch("moe_gemm_launch", _GEMM_ARGTYPES, SITE_GEMM, dev, 1,
+                  h.data_ptr(), w_down.data_ptr(), None, y.data_ptr(),
+                  slot.data_ptr(), sgate.data_ptr(), tiles.data_ptr(),
+                  n_tiles, E, Fh, D, top_k, wg, variant=var)
     out = y.view(T, top_k, D).sum(dim=1)
     return out, idx.view(T, top_k), gate.view(T, top_k)
 
@@ -248,9 +239,7 @@ def routed_experts(x: torch.Tensor, logits: torch.Tensor,
     kernels on the current stream (no host synchronisation) or raise.
     The routing kernel adds to ``counter`` with atomics, so replica
     threads may share it."""
-    if x.device.type in dispatch.PLAIN_DEVICES:
-        dispatch.record(SITE_ROUTE, "torch")
-        dispatch.record(SITE_GEMM, "torch")
+    if dispatch.plain(x.device, SITE_ROUTE, SITE_GEMM):
         idx, gates = route_plain(logits, top_k, norm_topk, scale)
         counter.scatter_add_(0, idx.reshape(-1),
                              torch.ones(idx.numel(), dtype=counter.dtype))

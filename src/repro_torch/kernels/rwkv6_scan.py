@@ -269,10 +269,6 @@ def _contiguous(*ts) -> None:
         raise ValueError("the CUDA kernels take contiguous inputs")
 
 
-def _stream(dev):
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
 # ----------------------------------------------------------------- wrappers
 def wkv6_decode(r, k, v, w, u, state, *,
                 out_state: Optional[torch.Tensor] = None):
@@ -285,29 +281,24 @@ def wkv6_decode(r, k, v, w, u, state, *,
     kernel on the current stream or raise."""
     _check(r, k, v, w, u, state, steps=False)
     dev = r.device
-    if dev.type in dispatch.PLAIN_DEVICES:
-        dispatch.record(SITE_DECODE, "torch")
+    if dispatch.plain(dev, SITE_DECODE):
         y, new = wkv6_decode_plain(r, k, v, w, u, state)
         if out_state is None:
             return y, new
         return y, _out_state(state, out_state).copy_(new)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
     _contiguous(r, k, v, w, u, state)
     BH, dk = r.shape
     dv = v.shape[-1]
     dst = _out_state(state, out_state)
     y = torch.empty((BH, dv), dtype=torch.float32, device=dev)
-    if BH and dk and dv:
-        fn = _build.function("wkv6_decode_launch", _DECODE_ARGTYPES)
-        with torch.cuda.device(dev):
-            _build.check(fn(r.data_ptr(), k.data_ptr(), v.data_ptr(),
-                            w.data_ptr(), u.data_ptr(), state.data_ptr(),
-                            y.data_ptr(), dst.data_ptr(),
-                            DTYPE_CODES[r.dtype], BH, dk, dv,
-                            col_split(BH, dv), _stream(dev)), SITE_DECODE)
-        dispatch.count_launch(SITE_DECODE)
-    dispatch.record(SITE_DECODE, "cuda")
+    if not (BH and dk and dv):
+        dispatch.record(SITE_DECODE, "cuda")
+        return y, dst
+    _build.launch("wkv6_decode_launch", _DECODE_ARGTYPES, SITE_DECODE, dev,
+                  r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                  u.data_ptr(), state.data_ptr(), y.data_ptr(),
+                  dst.data_ptr(), DTYPE_CODES[r.dtype], BH, dk, dv,
+                  col_split(BH, dv))
     return y, dst
 
 
@@ -344,14 +335,11 @@ def wkv6_batched(r, k, v, w, u, state, *, chunk: int = CHUNK,
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     dev = r.device
-    if dev.type in dispatch.PLAIN_DEVICES:
-        dispatch.record(SITE_BATCHED, "torch")
+    if dispatch.plain(dev, SITE_BATCHED):
         y, new = wkv6_batched_plain(r, k, v, w, u, state, chunk=chunk)
         if out_state is None:
             return y, new
         return y, _out_state(state, out_state).copy_(new)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
     _contiguous(r, k, v, w, u, state)
     BH, T, dk = r.shape
     dv = v.shape[-1]
@@ -363,16 +351,14 @@ def wkv6_batched(r, k, v, w, u, state, *, chunk: int = CHUNK,
                          f"may use")
     dst = _out_state(state, out_state)
     y = torch.empty((BH, T, dv), dtype=torch.float32, device=dev)
-    if BH and dk and dv:
-        fn = _build.function("wkv6_batched_launch", _BATCHED_ARGTYPES)
-        with torch.cuda.device(dev):
-            _build.check(fn(r.data_ptr(), k.data_ptr(), v.data_ptr(),
-                            w.data_ptr(), u.data_ptr(), state.data_ptr(),
-                            y.data_ptr(), dst.data_ptr(),
-                            DTYPE_CODES[r.dtype], BH, T, dk, dv, chunk,
-                            n_col, _stream(dev)), SITE_BATCHED)
-        dispatch.count_launch(SITE_BATCHED)
-    dispatch.record(SITE_BATCHED, "cuda")
+    if not (BH and dk and dv):
+        dispatch.record(SITE_BATCHED, "cuda")
+        return y, dst
+    _build.launch("wkv6_batched_launch", _BATCHED_ARGTYPES, SITE_BATCHED,
+                  dev, r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                  u.data_ptr(), state.data_ptr(), y.data_ptr(),
+                  dst.data_ptr(), DTYPE_CODES[r.dtype], BH, T, dk, dv, chunk,
+                  n_col)
     return y, dst
 
 

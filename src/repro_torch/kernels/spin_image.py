@@ -247,28 +247,19 @@ def spin_image(points: torch.Tensor, centers: torch.Tensor,
     kernel on the current stream or raise."""
     _check(points, centers, normals, n_alpha, n_beta)
     dev = points.device
-    if dev.type in dispatch.PLAIN_DEVICES:
-        dispatch.record(SITE, "torch")
+    if dispatch.plain(dev, SITE):
         return spin_image_plain(points, centers, normals, n_alpha=n_alpha,
                                 n_beta=n_beta, alpha_max=alpha_max,
                                 beta_max=beta_max)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
     Bo = centers.shape[0]
     out = torch.empty((Bo, n_beta, n_alpha), dtype=torch.float32,
                       device=dev)
     if Bo == 0:
         dispatch.record(SITE, "cuda")
         return out
-    fn = _build.function("spin_image_launch", _ARGTYPES)
     split = pt_split(Bo, points.shape[0])
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _build.check(fn(points.data_ptr(), points.shape[0],
-                        centers.data_ptr(), normals.data_ptr(),
-                        out.data_ptr(), Bo, n_alpha, n_beta,
-                        float(alpha_max), float(beta_max), split, stream),
-                     "spin_image")
-    dispatch.count_launch(SITE)
-    dispatch.record(SITE, "cuda")
+    _build.launch("spin_image_launch", _ARGTYPES, SITE, dev,
+                  points.data_ptr(), points.shape[0], centers.data_ptr(),
+                  normals.data_ptr(), out.data_ptr(), Bo, n_alpha, n_beta,
+                  float(alpha_max), float(beta_max), split)
     return out

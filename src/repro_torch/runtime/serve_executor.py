@@ -293,25 +293,26 @@ class FusedGenerator:
     Token-identical to ``greedy_decode_group`` and to the reference's
     ``FusedGenerator`` on float32 configs (tests/test_torch_serve.py).
 
-    A model that declares its decode step capturable
-    (``model.decode_capturable``: every layer dense GQA) runs the steps of
-    3. as one closure over a static input token and a static device
-    position (:func:`_static_step`); every other model walks them from
-    Python at int positions.  On a CUDA device, a capturable model's
-    group of at least :data:`GRAPH_MIN_STEPS` steps is graphed
-    (:meth:`graphed`): it leases a side stream (:class:`_Lane`) before
-    its prefill, and the lane keeps, per (rows, :func:`cache_capacity`
-    of S + max_new), the cache, the static token and position and the
-    step's CUDA graph across groups.  The prefill fills that cache on the
-    current stream; the steps run on the lane's stream.  A group whose
-    (rows, capacity) the lane has graphed (a hit) writes its first token
-    and S there and replays the graph from step 1; otherwise (a capture)
-    step 1 runs the closure eagerly (it builds the state a capture must
-    not, such as the cuBLAS workspace of that stream), step 2 captures it
-    once (through ``model.decode_step``, the instance's attribute, so a
-    wrapper is captured too) into the lane's pool, and the graph replays
-    steps 2 .. max_new - 1 and is kept.  The same closure runs either
-    way, with the same kernels and shapes, so the tokens do not change.
+    The steps of 3. take one of two loops.  A group that is not graphed
+    walks them from Python at int positions, whatever the model.  On a
+    CUDA device, the group of a model that declares its decode step
+    capturable (``model.decode_capturable``: every layer dense GQA) with
+    at least :data:`GRAPH_MIN_STEPS` steps is graphed (:meth:`graphed`),
+    its step one closure over a static input token and a static device
+    position (:func:`_static_step`).  It leases a side stream
+    (:class:`_Lane`) before its prefill, and the lane keeps, per (rows,
+    :func:`cache_capacity` of S + max_new), the cache, the static token
+    and position and the step's CUDA graph across groups.  The prefill
+    fills that cache on the current stream; the steps run on the lane's
+    stream.  A group whose (rows, capacity) the lane has graphed (a hit)
+    writes its first token and S there and replays the graph from step
+    1; otherwise (a capture) step 1 runs the closure eagerly (it builds
+    the state a capture must not, such as the cuBLAS workspace of that
+    stream), step 2 captures it once (through ``model.decode_step``, the
+    instance's attribute, so a wrapper is captured too) into the lane's
+    pool, and the graph replays steps 2 .. max_new - 1 and is kept.  The
+    closure launches the kernels of the int-position loop, so the tokens
+    do not change.
     Launches made while capturing are counted once per replay
     (``kernels.dispatch.capturing``); hits and captures are counted as
     ``kernels.dispatch.events`` :data:`GRAPH_HITS` and
@@ -372,9 +373,6 @@ class FusedGenerator:
             if graphed:
                 return self._graphed_steps(params, lane, kept, tok, out, S,
                                            ctx, mark)[:B]
-            if getattr(model, "decode_capturable", False):
-                return self._static_steps(params, cache, tok, out, S, ctx,
-                                          mark)[:B]
             for i in range(1, max_new):
                 logits, cache = model.decode_step(params, cache,
                                                   tok[:, None], S + i - 1)
@@ -383,21 +381,6 @@ class FusedGenerator:
                 if ctx is not None:       # steps follow back to back
                     mark = ctx.span(trace.EV_STEP, mark, rows)
             return out.cpu().numpy()[:B]
-
-    def _static_steps(self, params, cache: dict, tok: torch.Tensor,
-                      out: torch.Tensor, S: int, ctx, mark) -> np.ndarray:
-        """Steps 1 .. max_new - 1 of a capturable model's group that is
-        not graphed into ``out``, each the closure of :func:`_static_step`
-        run eagerly; -> ``out`` on the host."""
-        tok_in = tok[:, None].clone()
-        pos = torch.full((), S, dtype=torch.int32, device=out.device)
-        step = _static_step(self.model, params, cache, tok_in, pos)
-        for i in range(1, out.shape[1]):
-            step()
-            out[:, i] = tok_in[:, 0]
-            if ctx is not None:           # steps follow back to back
-                mark = ctx.span(trace.EV_STEP, mark, out.shape[0])
-        return out.cpu().numpy()
 
     def _graphed_steps(self, params, lane: _Lane, kept: _Kept,
                        tok: torch.Tensor, out: torch.Tensor, S: int, ctx,

@@ -25,6 +25,7 @@ from repro_torch.configs import get_smoke
 from repro_torch.kernels import dispatch, ops
 from repro_torch.models import attention as attn
 from repro_torch.models import build_model
+from repro_torch.runtime import serve_executor
 from repro_torch.runtime.serve_executor import FusedGenerator
 
 _spec = importlib.util.spec_from_file_location(
@@ -187,3 +188,15 @@ def test_exec_phase_at_smoke_size(arch, counted_launches, monkeypatch):
     prefill_site = chip_smoke.EXEC_SITES[arch][0]
     assert [n.get(prefill_site, 0) > 0 for n in launches.values()] \
         == [fused for _, fused in chip_smoke.EXEC_MODES]
+
+
+def test_plain_versions_drop_the_kept_graphs(monkeypatch):
+    """A lane's kept decode-step graph replays the kernels it captured,
+    so the plain-version run starts with no lane kept, and the lanes it
+    leaves (graphs of the plain versions) are dropped after it."""
+    lanes = {torch.device("cpu"): ["a lane keeping kernel graphs"]}
+    monkeypatch.setattr(serve_executor, "_free_lanes", lanes)
+    with chip_smoke.plain_versions():
+        assert lanes == {}
+        lanes[torch.device("cpu")] = ["a lane keeping plain graphs"]
+    assert lanes == {}

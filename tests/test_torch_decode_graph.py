@@ -124,8 +124,9 @@ def test_graph_capability_is_dense_gqa_only(arch):
 
 @pytest.mark.parametrize("B", [1, 3])
 def test_fused_generator_on_cpu_never_graphs(B, monkeypatch):
-    """On the CPU a capturable model's groups of many steps run the
-    static-buffer step uncaptured, to the per-token loop's tokens."""
+    """On the CPU a capturable model's groups of many steps lease no lane
+    and capture nothing: they walk the int-position loop, to the
+    per-token loop's tokens."""
     model = build_model(DENSE)
     assert model.decode_capturable
     params = model.init(0, device=CPU)
@@ -143,46 +144,48 @@ def test_fused_generator_on_cpu_never_graphs(B, monkeypatch):
 
 @pytest.mark.parametrize("arch", ["olmo-1b", "rwkv6-1.6b", "hymba-1.5b"])
 def test_static_step_is_the_capturable_models_only(arch, monkeypatch):
-    """The static-buffer step (the one a graph captures) runs a model's
-    decode steps exactly where the model declares them capturable; the
-    others keep the loop at int positions."""
+    """The static-buffer step (the one a graph captures) runs only in a
+    graphed group: a group that is not graphed, capturable model or not,
+    calls ``model.decode_step`` (the instance's attribute) exactly
+    max_new - 1 times after its prefill, at the int positions
+    S .. S + max_new - 2, to the per-token loop's tokens."""
     cfg = get_smoke(arch).replace(dtype="float32")
     model = build_model(cfg)
     params = model.init(0, device=CPU)
-    ran = []
-    static = FusedGenerator._static_steps
+    step, positions = model.decode_step, []
 
-    def spy(self, *args):
-        ran.append(True)
-        return static(self, *args)
-    monkeypatch.setattr(FusedGenerator, "_static_steps", spy)
+    def spy(*args):
+        positions.append(args[3])
+        return step(*args)
+    monkeypatch.setattr(model, "decode_step", spy)
     prompts = np.random.default_rng(2).integers(
         0, cfg.vocab_size, size=(2, 5)).astype(np.int32)
     got = FusedGenerator(model)(params, prompts, 5)
-    assert bool(ran) is (arch in CAPTURABLE)
-    want = greedy_decode_group(model, params, model.decode_step, prompts, 5)
+    assert positions == [5, 6, 7, 8]
+    assert all(type(p) is int for p in positions)
+    want = greedy_decode_group(model, params, step, prompts, 5)
     np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("replays", [0, 1, 5])
 def test_capture_tally_adds_once_per_replay(replays):
     """Launches counted while a thread captures go to its tally, not to
-    the counts, and each replay adds them once (variants too); paths
-    are recorded as always, and another thread's launches meanwhile
-    count as launched."""
+    the counts, and each replay adds them once (variants too); each
+    still records its "cuda" path and variant, and another thread's
+    launches meanwhile count as launched."""
     site, other = "tally_site", "tally_other"
     before = dispatch.launches(site), dispatch.launches(other)
     var_before = dispatch.variant_launches(site).get("v", 0)
     with dispatch.capturing() as tally:
         for _ in range(3):
             dispatch.count_launch(site)
-            dispatch.record(site, "cuda")
+            assert dispatch.status(site) == {"path": "cuda"}
         dispatch.count_launch(site, "v")
         t = threading.Thread(target=dispatch.count_launch, args=(other,))
         t.start()
         t.join()
         assert dispatch.launches(site) == before[0]
-        assert dispatch.status(site) == {"path": "cuda"}
+        assert dispatch.status(site) == {"path": "cuda", "variant": "v"}
     assert tally.counts == {(site, None): 3, (site, "v"): 1}
     assert dispatch.launches(other) == before[1] + 1
     dispatch.count_launch(site)                 # outside: counted

@@ -15,6 +15,8 @@ the JAX full-sequence kernel in interpret mode: within 1e-5 with P in
 float32, within the rounding bound + 1e-5 with P rounded.
 """
 
+import contextlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -115,18 +117,33 @@ def test_model_paths_hand_tma_ready_tensors_to_the_wgmma_variant(
     assert seen == [(dims, torch.bfloat16, "wgmma")] * cfg.n_layers
 
 
-def test_dispatch_records_the_variant_and_counts_per_variant():
-    site = "variant-test-site"
+@pytest.mark.parametrize("captured", [False, True])
+def test_dispatch_records_the_variant_and_counts_per_variant(captured):
+    """``record`` sets a site's path and variant; one ``count_launch``
+    both counts the launch, per variant too, and records the "cuda" path
+    with that variant, and inside ``capturing()`` it tallies the launch
+    instead of counting it."""
+    site = f"variant-test-site-{captured}"
     dispatch.record(site, "cuda", "wgmma")
     assert dispatch.status(site) == {"path": "cuda", "variant": "wgmma"}
     dispatch.record(site, "torch")
     assert dispatch.status(site) == {"path": "torch"}
     before = dispatch.launches(site)
-    for variant in ("wgmma", "wgmma", "fp32"):
-        dispatch.count_launch(site, variant)
-    assert dispatch.launches(site) == before + 3
-    got = dispatch.variant_launches(site)
-    assert got["wgmma"] >= 2 and got["fp32"] >= 1
+    with (dispatch.capturing() if captured
+          else contextlib.nullcontext()) as tally:
+        for variant in ("wgmma", "wgmma", "fp32"):
+            dispatch.count_launch(site, variant)
+            assert dispatch.status(site) == {"path": "cuda",
+                                             "variant": variant}
+    if captured:
+        assert dispatch.launches(site) == before
+        assert tally.counts == {(site, "wgmma"): 2, (site, "fp32"): 1}
+    else:
+        assert dispatch.launches(site) == before + 3
+        got = dispatch.variant_launches(site)
+        assert got["wgmma"] >= 2 and got["fp32"] >= 1
+    dispatch.count_launch(site)
+    assert dispatch.status(site) == {"path": "cuda"}
 
 
 # ------------------------------------------------ bf16-P rounding bound
