@@ -43,10 +43,14 @@ Phases, each fatal when it fails:
      wkv6_decode and wkv6_batched within float32 rounding at
      rwkv6-1.6b's heads of 64, BH = 32 (one request, the serving path's
      shape) and 256 (B = 8): decode at both, batched at BH = 32 with
-     T = 37, 64 and 1000 and at BH = 256 with T = 64, with w = 0.01, the
+     T = 37, 64, 256, 1000 and 1024 (256 and 1024: a segmented
+     prefill's segments) and at BH = 256 with T = 64, with w = 0.01, the
      state written in place and a repeated launch (bit for bit), each
      with its column split (CTAs a head) printed and timed beside its
-     bound; WKV6BatchedFn (the wkv6_batched kernel's forward, the
+     bound; batched at T = 256 and 1024 with a padded tail (k = 0,
+     w = 1 past a real count) against the unpadded launch: bit for bit
+     where the padding fills whole chunks, within 1e-4 elsewhere;
+     WKV6BatchedFn (the wkv6_batched kernel's forward, the
      backward in PyTorch ops) against autograd through the plain version
      at the training shape (BH = 32, T = 4,096, bfloat16), a ragged
      T = 1,000 in float32 and bfloat16 and under strong decay (w = 0.01),
@@ -80,10 +84,12 @@ Phases, each fatal when it fails:
      of each config cut to 2 layers (full width) must give the same
      greedy tokens through the kernels as through their plain versions,
      both on the card.  rwkv6-1.6b also times ``model.prefill`` of one
-     1000-token prompt (B = 1).  Then decode throughput: FusedGenerator
-     at B = 8, S = 64, 64 new tokens, and one profiled call of 8 new
-     tokens for the kernels per token position, the device's busy share
-     and the ops that take the most host time;
+     1000-token prompt (B = 1), and the path serving runs for it there:
+     FusedGenerator's segmented prefill of the same prompt, the calls
+     that captured apart from those that replayed.  Then decode
+     throughput: FusedGenerator at B = 8, S = 64, 64 new tokens, and one
+     profiled call of 8 new tokens for the kernels per token position,
+     the device's busy share and the ops that take the most host time;
   5. training: flash_attention (output and log-sum-exp, and the variant
      that ran) against its plain version at olmo-1b's training shape (16
      heads, S = 2048, D = 128, bfloat16, causal), a ragged GQA shape (8
@@ -191,7 +197,9 @@ Phases, each fatal when it fails:
      float32 copies of olmo-1b and rwkv6-1.6b at 2 layers, full width
      (3 requests, GSS over 2 threads): the four modes give the same
      greedy tokens through the kernels, rwkv6's per-token loop
-     launching wkv6_decode and no wkv6_batched;
+     launching wkv6_decode and no wkv6_batched, and its fused modes,
+     which prefill in segments replayed from kept CUDA graphs, launching
+     wkv6_batched once a layer a segment;
  10. print one JSON line with the simulator's numbers (``{"devicesim":
      ...}``), one with each kernel's launches, error, times and bound,
      then the result line.
@@ -1004,9 +1012,20 @@ def compare_moe_kernels(dev) -> dict:
 # wkv6 shapes: rwkv6-1.6b's 32 heads of 64 at B = 1 (BH = 32: the serving
 # path decodes each request on its own, one prompt length per group) and
 # at B = 8 (BH = 256: FusedGenerator's throughput shape); the batched
-# kernel at the served prompt lengths, and at T = 64.
+# kernel at the served prompt lengths, at T = 64, and at the lengths of a
+# segmented prefill's segments (SEGMENT_SHORT and SEGMENT_LONG of
+# runtime/serve_executor: every rwkv6 prefill on the card launches these).
 WKV_DECODE_BH = (32, 256)
-WKV_BATCHED = ((32, 37), (32, 64), (32, 1000), (256, 64))
+WKV_BATCHED = ((32, 37), (32, 64), (32, 1000), (256, 64), (32, 256),
+               (32, 1024))
+# A segmented prefill's padded last segment: (BH, T, real steps), k = 0
+# and w = 1 past the real steps.  Where the padding fills whole chunks,
+# the state and the real steps' y equal the unpadded launch's bit for
+# bit; where a chunk holds both, the kernel sums that chunk's log decays
+# in blocks set by its row count (32 padded, fewer unpadded), so the two
+# agree to rounding (within the batched kernel's tolerance).
+WKV_PADDED = ((32, 256, 192), (32, 256, 200), (32, 1024, 992),
+              (32, 1024, 1000))
 # The row of the {"kernels": [...]} line: the shape earlier PRs timed.
 WKV_ROW = {"wkv6_decode": 256, "wkv6_batched": (256, 64)}
 
@@ -1026,6 +1045,47 @@ def wkv_inputs(dev, gen, BH, T, dk, dtype, *, w=None):
     u = torch.randn((BH, dk), generator=gen)
     s = torch.randn((BH, dk, dk), generator=gen)
     return [x.to(dev, dtype) for x in (r, k, v, ww, u)] + [s.to(dev)]
+
+
+def wkv6_padding_gap(fn, ins, n: int) -> tuple:
+    """``fn`` (wkv6_batched or its plain version) on ``ins`` = (r, k, v,
+    w, u, state) of T steps with k = 0 and w = 1 from step n on, against
+    ``fn`` on the first n steps alone -> (the largest difference of the
+    state and of the n real steps' y, each as a share of the unpadded
+    launch's largest magnitude; whether both are equal bit for bit)."""
+    import torch
+    r, k, v, w, u, s = ins
+    k, w = k.clone(), w.clone()
+    k[:, n:] = 0.0
+    w[:, n:] = 1.0
+    y_pad, s_pad = fn(r, k, v, w, u, s)
+    y_pad = y_pad[:, :n]
+    y, s_one = fn(*(x[:, :n].contiguous() for x in (r, k, v, w)), u, s)
+
+    def rel(got, want):
+        return float((got - want).abs().max() / want.abs().max())
+    return (rel(s_pad, s_one), rel(y_pad, y),
+            torch.equal(s_pad, s_one) and torch.equal(y_pad, y))
+
+
+def check_wkv6_padding(dev, gen) -> None:
+    """wkv6_batched at each of WKV_PADDED: bit for bit where the padding
+    fills whole chunks, within 1e-4 of the largest magnitude elsewhere."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import rwkv6_scan as kw
+    import torch
+    dk = get_config("rwkv6-1.6b").rwkv_head_dim
+    for BH, T, n in WKV_PADDED:
+        ins = wkv_inputs(dev, gen, BH, T, dk, torch.bfloat16)
+        e_state, e_y, exact = wkv6_padding_gap(kw.wkv6_batched, ins, n)
+        whole = n % kw.CHUNK == 0
+        print(f"compare,wkv6_batched_padded,BH={BH},T={T},real={n},"
+              f"whole_chunks={whole},state_rel_err={e_state},"
+              f"y_rel_err={e_y},bit_equal={exact}")
+        if not (exact if whole else max(e_state, e_y) <= 1e-4):
+            fail(f"wkv6_batched (BH={BH}, T={T}) padded past {n} steps "
+                 f"differs from the unpadded launch (state {e_state}, y "
+                 f"{e_y}, bit equal {exact})")
 
 
 def wkv6_decode_bound(BH: int, dk: int, dv: int) -> tuple[float, str]:
@@ -1145,6 +1205,7 @@ def compare_wkv6_kernels(dev) -> dict:
             _time(rows, "wkv6_batched", launch,
                   lambda: kw.wkv6_batched_plain(*ins), "wkv6_batched", 100)
     rows["wkv6_batched"]["max_abs_err"] = err
+    check_wkv6_padding(dev, gen)
     for name in rows:
         rows[name]["shapes"] = [t for k, t in timed if k == name]
     rows["wkv6_batched"]["backward"] = compare_wkv6_grads(dev)
@@ -1400,6 +1461,65 @@ def time_prefill(model, params, reps: int = 3) -> list:
     return [round(w, 6) for w in walls[1:]]
 
 
+def time_segmented_prefill(model, params, reps: int = 3) -> dict | None:
+    """Where the model's groups prefill in segments replayed from CUDA
+    graphs (``FusedGenerator.segmented``), the serving path's prefill of
+    the PREFILL_T-token prompt: wall seconds of ``reps`` + 1 calls of
+    ``FusedGenerator`` for one new token (the segments and one argmax,
+    ending when the token reaches the host), those in which a segment
+    captured its graph apart from those that only replayed kept graphs,
+    with the segments of each kind; None where it does not.  The card's
+    kept lanes are dropped first, so the first call captures."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.common import first_tensor
+    from repro_torch.runtime import serve_executor as se
+    dev = first_tensor(params).device
+    gen = se.FusedGenerator(model)
+    if not gen.segmented(dev):
+        return None
+    prompt = np.random.default_rng(3).integers(
+        0, model.cfg.vocab_size, size=(1, PREFILL_T)).astype(np.int32)
+    with se._lanes_lock:
+        se._free_lanes.pop(dev, None)
+    out = {"capture_s": [], "replay_s": [], "captures": 0, "hits": 0}
+    for _ in range(reps + 1):
+        c0 = dispatch.events(se.PREFILL_CAPTURES)
+        h0 = dispatch.events(se.PREFILL_HITS)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        tok = gen(params, prompt, 1)
+        wall = round(time.perf_counter() - t0, 6)
+        captures = dispatch.events(se.PREFILL_CAPTURES) - c0
+        out["captures"] += captures
+        out["hits"] += dispatch.events(se.PREFILL_HITS) - h0
+        out["capture_s" if captures else "replay_s"].append(wall)
+    if tok.shape != (1, 1) or not 0 <= tok[0, 0] < model.cfg.vocab_size:
+        fail(f"{model.cfg.name}: the segmented prefill returned {tok}")
+    return out
+
+
+def print_prefill_times(model, params) -> None:
+    """The ``prefill,`` line of time_prefill and, where the model's
+    groups prefill in segments, the ``prefill_segmented,`` line of
+    time_segmented_prefill (the path serving runs there)."""
+    from repro_torch.runtime.serve_executor import prefill_segments
+    cfg = model.cfg
+    walls = time_prefill(model, params)
+    print(f"prefill,{cfg.name},B=1,T={PREFILL_T},{cfg.dtype}: wall_s of "
+          f"{len(walls)} model.prefill calls after a warm-up={walls}")
+    seg = time_segmented_prefill(model, params)
+    if seg is not None:
+        print(f"prefill_segmented,{cfg.name},B=1,T={PREFILL_T},{cfg.dtype}:"
+              f" segments {prefill_segments(PREFILL_T)},wall_s of "
+              f"FusedGenerator calls of one token that captured="
+              f"{seg['capture_s']},that "
+              f"replayed kept graphs alone={seg['replay_s']},segments "
+              f"captured={seg['captures']},replayed={seg['hits']}")
+
+
 SERVE_SITES = {"olmo-1b": ("flash_decode", "flash_attention"),
                "rwkv6-1.6b": ("wkv6_decode", "wkv6_batched")}
 
@@ -1473,9 +1593,7 @@ def drive_serving(dev, arch: str) -> dict:
           f"{tp['busy_share']:.3f},top host ops (name, calls, self ms)="
           f"{tp['top_host_ops']}")
     if arch == PREFILL_ARCH:
-        walls = time_prefill(model, params)
-        print(f"prefill,{arch},B=1,T={PREFILL_T},{cfg.dtype}: wall_s of "
-              f"{len(walls)} model.prefill calls after a warm-up={walls}")
+        print_prefill_times(model, params)
     del model, params
     torch.cuda.empty_cache()
     same = check_plain_tokens(dev, arch)
@@ -2082,9 +2200,7 @@ def drive_family(dev, arch: str) -> dict:
           f"token position={step['kernels_per_position']:.1f},device busy "
           f"share={step['busy_share']:.3f},top device kernels (name, calls, "
           f"ms)={step['top']}")
-    walls = time_prefill(model, params)
-    print(f"prefill,{arch},B=1,T={PREFILL_T},{cfg.dtype}: wall_s of "
-          f"{len(walls)} model.prefill calls after a warm-up={walls}")
+    print_prefill_times(model, params)
     print(f"memory,{arch},peak_allocated_gb="
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
     del model, params
@@ -3191,13 +3307,15 @@ def exec_requests(vocab: int, n: int | None = None) -> list:
 
 class ModelCalls:
     """Counts a model's ``prefill`` and ``decode_step`` calls, from any
-    thread, by wrapping both on the instance."""
+    thread, by wrapping both on the instance, and, under ``"groups"``,
+    the prompt length of each group a watched executor's fused generator
+    served (:meth:`watching`)."""
 
     def __init__(self, model):
         import threading
         self._lock = threading.Lock()
-        self.n = {"prefill": 0, "decode_step": 0}
-        for name in self.n:
+        self.n = {"prefill": 0, "decode_step": 0, "groups": []}
+        for name in ("prefill", "decode_step"):
             setattr(model, name, self._counting(name, getattr(model, name)))
 
     def _counting(self, name: str, fn):
@@ -3207,16 +3325,37 @@ class ModelCalls:
             return fn(*args, **kwargs)
         return call
 
+    @contextlib.contextmanager
+    def watching(self, ex):
+        """For the block, each group ``ex`` hands its fused generator (if
+        it has one) adds its prompt length to ``"groups"``."""
+        gen = ex._fused
+        if gen is None:
+            yield
+            return
+
+        def call(params, prompts, max_new):
+            with self._lock:
+                self.n["groups"].append(prompts.shape[1])
+            return gen(params, prompts, max_new)
+        ex._fused = call
+        try:
+            yield
+        finally:
+            ex._fused = gen
+
     def take(self) -> dict:
         """The counts since the last take, then set to 0."""
         with self._lock:
-            out, self.n = self.n, dict.fromkeys(self.n, 0)
+            out = self.n
+            self.n = {"prefill": 0, "decode_step": 0, "groups": []}
         return out
 
 
 def exec_launch_problems(sites, n_layers: int, fused: bool, calls: dict,
                          launches: dict, *, graphed: bool = False,
-                         captures: int | None = None) -> list:
+                         captures: int | None = None,
+                         segments: tuple | None = None) -> list:
     """What is wrong with one run's launches, from the model calls it
     made: each layer launches the prefill site once a prefill call and
     the decode site once a decode step, nothing else launches, the loop
@@ -3228,12 +3367,34 @@ def exec_launch_problems(sites, n_layers: int, fused: bool, calls: dict,
     that captured the graph (step 1 and the capture) and none in one
     that replayed a graph its lane kept: two a capture (``captures``,
     the run's count), or, with no count, an even number, two a group at
-    most."""
+    most.  Where the groups prefill in segments replayed from kept
+    graphs, ``segments`` = (captures, hits), the run's counts of the
+    executor's ``PREFILL_CAPTURES`` and ``PREFILL_HITS``: the prefill
+    site launches once a layer a segment (the eager one of a capture and
+    each replay), ``prefill`` is called twice a capture (the eager
+    segment and the capture) and never for a hit, the segments are
+    those of ``prefill_segments`` over the prompt lengths of the groups
+    served (``calls["groups"]``), and each group calls ``decode_step``
+    for its SERVE_NEW - 1 steps."""
+    from repro_torch.runtime.serve_executor import prefill_segments
     problems = []
-    if (calls["prefill"] > 0) != fused:
-        problems.append(f"{calls['prefill']} prefill calls")
+    prefills = calls["prefill"] if segments is None else sum(segments)
+    if (prefills > 0) != fused:
+        problems.append(f"{prefills} prefills")
     steps = calls["decode_step"]
-    if fused:
+    if fused and segments is not None:
+        if calls["prefill"] != 2 * segments[0]:
+            problems.append(f"{calls['prefill']} prefill calls, expected "
+                            f"{2 * segments[0]} (two a capture)")
+        groups = calls["groups"]
+        planned = sum(len(prefill_segments(S)) for S in groups)
+        if prefills != planned:
+            problems.append(f"{prefills} segments, expected {planned} for "
+                            f"groups of prompt lengths {groups}")
+        if steps != len(groups) * (SERVE_NEW - 1):
+            problems.append(f"{steps} decode_step calls for {len(groups)} "
+                            f"groups")
+    elif fused:
         steps = calls["prefill"] * (SERVE_NEW - 1)
         got = calls["decode_step"]
         if not graphed:
@@ -3248,8 +3409,7 @@ def exec_launch_problems(sites, n_layers: int, fused: bool, calls: dict,
                             f"expected {want_calls}")
     if steps <= 0:
         problems.append("no decode step")
-    want = {sites[0]: n_layers * calls["prefill"],
-            sites[1]: n_layers * steps}
+    want = {sites[0]: n_layers * prefills, sites[1]: n_layers * steps}
     want = {k: v for k, v in want.items() if v}
     got = {k: v for k, v in launches.items() if v}
     if got != want:
@@ -3274,6 +3434,20 @@ def exec_captures() -> int:
     return dispatch.events(GRAPH_CAPTURES)
 
 
+def exec_segments(model, params) -> tuple | None:
+    """(captures, hits) of prefill segments since the launch counts were
+    last set to 0 (the serving executor's ``PREFILL_CAPTURES`` and
+    ``PREFILL_HITS`` events), or None where the model's groups do not
+    prefill in segments where its params lie."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.common import first_tensor
+    from repro_torch.runtime import serve_executor as se
+    if not se.FusedGenerator(model).segmented(first_tensor(params).device):
+        return None
+    return (dispatch.events(se.PREFILL_CAPTURES),
+            dispatch.events(se.PREFILL_HITS))
+
+
 def exec_serve(ex, reqs, calls: ModelCalls, **kw) -> tuple:
     """``ex.serve(reqs, **kw)`` with launch and model-call counts set to
     0 just before and read just after -> (stats, wall seconds, launches,
@@ -3281,9 +3455,10 @@ def exec_serve(ex, reqs, calls: ModelCalls, **kw) -> tuple:
     from repro_torch.kernels import dispatch
     calls.take()
     dispatch.reset_launches()
-    t0 = time.perf_counter()
-    st = ex.serve(reqs, **kw)       # tokens reach the host: synchronised
-    wall = time.perf_counter() - t0
+    with calls.watching(ex):
+        t0 = time.perf_counter()
+        st = ex.serve(reqs, **kw)   # tokens reach the host: synchronised
+        wall = time.perf_counter() - t0
     launches, n = dispatch.launches(), calls.take()
     vocab = ex.model.cfg.vocab_size
     for r in reqs:
@@ -3337,7 +3512,8 @@ def exec_mode(model, params, calls: ModelCalls, mode, sites) -> dict:
             fail(f"{cfg.name} {label}: the run hung")
         problems = exec_launch_problems(
             sites, cfg.n_layers, mode[1], n, launches,
-            graphed=exec_graphed(model, params), captures=exec_captures())
+            graphed=exec_graphed(model, params), captures=exec_captures(),
+            segments=exec_segments(model, params))
         if problems:
             fail(f"{cfg.name} {label}: {problems}")
         if failing and (st.n_duplicates < 1 or 1 not in ex.dead):
@@ -3421,7 +3597,8 @@ def exec_cross_mode(dev, arch: str) -> dict:
         st, wall, launches, n = exec_serve(ex, reqs, calls)
         problems = exec_launch_problems(
             EXEC_SITES[arch], cfg.n_layers, mode[1], n, launches,
-            graphed=exec_graphed(model, params), captures=exec_captures())
+            graphed=exec_graphed(model, params), captures=exec_captures(),
+            segments=exec_segments(model, params))
         if st.hung or problems:
             fail(f"{arch} float32 {exec_label(mode)}: hung={st.hung} "
                  f"{problems}")

@@ -26,7 +26,9 @@ and prints, as the last line, one JSON object with
     graph, captured in their group or kept from an earlier one: the
     ``EV_GRAPH`` rows' sizes over the ``EV_STEP`` rows), graph_hit_share
     (the graphed groups that replayed a kept graph: ``EV_GRAPH`` rows
-    with detail "hit" over all of them), captures and hits, and
+    with detail "hit" over those with "hit" or "capture"; a segmented
+    prefill's rows, "prefill-hit" and "prefill-capture", are left out),
+    captures and hits, and
     capture_ms (mean wall of the capturing ``EV_GRAPH`` rows: capture
     and instantiation);
   * ``harness``: the run's own metrics (``decode_step_ms`` among them),
@@ -83,8 +85,11 @@ def span_readings(traces: list, dev: list | None, sites) -> dict:
         return 1e3 * float(dts.mean()) if len(dts) else None
 
     def graph_rows(t, hit: bool):
+        """The decode step's EV_GRAPH rows that hit (or captured); a
+        segmented prefill's rows are "prefill-hit" / "prefill-capture"."""
         return np.array([i for i in np.flatnonzero(t.kind == trc.EV_GRAPH)
-                         if (t.details.get(int(i)) == "hit") is hit],
+                         if t.details.get(int(i)) == ("hit" if hit
+                                                      else "capture")],
                         dtype=np.int64)
 
     cpu = sum(float(t.aux[t.kind == trc.EV_GROUP].sum()) / 1e6
@@ -111,7 +116,9 @@ def span_readings(traces: list, dev: list | None, sites) -> dict:
                                          - (t.t + t.dt)[inner].max()))
     least = int(np.argmin(cover)) if cover else None
     n_steps = int(sum((t.kind == trc.EV_STEP).sum() for t in traces))
-    replayed = int(sum(t.size[t.kind == trc.EV_GRAPH].sum() for t in traces))
+    replayed = int(sum(t.size[np.concatenate([graph_rows(t, True),
+                                              graph_rows(t, False)])].sum()
+                       for t in traces))
     hits = sum(len(graph_rows(t, True)) for t in traces)
     capture_dt = np.concatenate([t.dt[graph_rows(t, False)] for t in traces])
     graphed = hits + len(capture_dt)

@@ -54,7 +54,7 @@ What each run leaves for inspection (``runs()``, reset by
 its children, its chaos events, and per child its pid, the seconds
 from spawn to its first assignment and the latest ``("kernels", ...)``
 report it sent (``cluster.worker.kernel_info``: kernel path, launch
-counts, peak card memory).
+and event counts, peak card memory).
 """
 
 from __future__ import annotations

@@ -154,8 +154,8 @@ class ChunkRunner:
 
 
 def kernel_info() -> Optional[dict]:
-    """This process's kernel path and launch counts, and its peak card
-    memory; None when it never loaded the kernel package."""
+    """This process's kernel path, launch and event counts, and its peak
+    card memory; None when it never loaded the kernel package."""
     dispatch = sys.modules.get("repro_torch.kernels.dispatch")
     if dispatch is None:
         return None
@@ -164,7 +164,8 @@ def kernel_info() -> Optional[dict]:
     if torch is not None and torch.cuda.is_initialized():
         peak = int(torch.cuda.max_memory_allocated())
     return {"pid": os.getpid(), "status": dispatch.status(),
-            "launches": dispatch.launches(), "peak_bytes": peak}
+            "launches": dispatch.launches(), "events": dispatch.events(),
+            "peak_bytes": peak}
 
 
 # -------------------------------------------------------------- child main
@@ -180,7 +181,9 @@ def worker_main(address: str, wid: int, factory: Any,
     ``spawned`` says the child is a fresh interpreter; a runner that
     declares ``start_method = "spawn"`` refuses to run in a forked one.
     A forked child that inherited torch computes on one thread: the
-    parent's intra-op pool does not survive a fork.
+    parent's intra-op pool does not survive a fork.  It also starts from
+    no kernel path records and zero launch and event counts
+    (``kernels.dispatch.reset``), so its kernel reports hold its own.
 
     With ``trace`` on, the worker records its execution spans locally
     (ABSOLUTE ``time.monotonic()`` timestamps — CLOCK_MONOTONIC is
@@ -205,6 +208,9 @@ def worker_main(address: str, wid: int, factory: Any,
                     f"forked child cannot use CUDA")
             if "torch" in sys.modules:
                 sys.modules["torch"].set_num_threads(1)
+            dispatch = sys.modules.get("repro_torch.kernels.dispatch")
+            if dispatch is not None:
+                dispatch.reset()
         setup = getattr(runner, "setup", None)
         if callable(setup):
             setup()

@@ -185,6 +185,20 @@ def device_counters() -> dict[str, torch.Tensor]:
         return dict(_COUNTERS)
 
 
+def reset() -> None:
+    """Forget every path record and set every count to 0, as in a process
+    that never ran a kernel: what a forked child starts from, since counts
+    are per process.  Takes a new lock: one that another thread of the
+    parent held at the fork is never released in the child."""
+    global _lock
+    _lock = threading.Lock()
+    _STATUS.clear()
+    _LAUNCHES.clear()
+    _VARIANTS.clear()
+    _EVENTS.clear()
+    _COUNTERS.clear()
+
+
 def reset_launches() -> None:
     """Set every launch count, event count and device counter to 0."""
     with _lock:

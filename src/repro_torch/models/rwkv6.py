@@ -15,6 +15,14 @@ kernels on the card, their plain versions on the CPU.  The carried state
 (token shifts and per-head wkv state) IS the decode cache; it is
 preallocated and updated in place.
 
+Because that state is O(1), a prefill may run as a chain of fixed-length
+segments, each on the state the last one left
+(:attr:`RWKV6Model.prefill_segmentable`).  A state that carries
+``"valid"``, a 0-dim int32 device count of the segment's real tokens,
+pads the rest: there ``k = 0`` and ``w = 1``, so the wkv state passes
+unchanged (``S = 1 * S + 0``), and the token shifts and the logits are
+read at position ``valid - 1`` through a device index.
+
 Training (:meth:`RWKV6Model.loss`) has a forward of its own: it starts
 from a zero state, writes nothing in place, and runs the recurrence
 through ``kernels.wkv6_batched_train`` (the same kernel, with a
@@ -111,6 +119,20 @@ def _shift(x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
     return torch.cat([prev[:, None, :], x[:, :-1, :]], dim=1)
 
 
+def real_positions(valid: torch.Tensor, S: int) -> tuple:
+    """A padded segment of S positions whose first ``valid`` (a 0-dim
+    device count) are real -> (which positions are real, (1, S, 1) bool;
+    the last real one, a (1,) int64 index), both on the device."""
+    pos = torch.arange(S, device=valid.device)
+    return (pos < valid).view(1, S, 1), (valid.long() - 1).view(1)
+
+
+def _last(x: torch.Tensor, real) -> torch.Tensor:
+    """x's last position (B, D), or its last real one in a padded
+    segment (``real`` of :func:`real_positions`)."""
+    return x[:, -1, :] if real is None else x.index_select(1, real[1])[:, 0]
+
+
 def _ddlerp(p, x, dx, x_mix, z: str):
     """Data-dependent lerp toward the previous token for projection z;
     dx = x_prev - x and x_mix = x + dx * mu_base are shared by the five
@@ -118,11 +140,13 @@ def _ddlerp(p, x, dx, x_mix, z: str):
     return x + dx * (p[f"mu_{z}"] + _lora(p[f"lora_{z}"], x_mix))
 
 
-def time_mix(p, cfg: ModelConfig, x, prev_tok, wkv_state):
+def time_mix(p, cfg: ModelConfig, x, prev_tok, wkv_state, real=None):
     """x: (B,S,D); prev_tok: (B,D); wkv_state: (B,H,dk,dv) float32,
     updated in place, or None for training: the recurrence then starts
     from a zero state under autograd (``wkv6_batched_train``) and writes
-    nothing in place.  Returns (out, last normed token, wkv_state)."""
+    nothing in place.  ``real`` (:func:`real_positions`) pads a segment:
+    k = 0 and w = 1 past its real positions.  Returns (out, last (real)
+    normed token, wkv_state)."""
     B, S, D = x.shape
     dh = cfg.rwkv_head_dim
     H = D // dh
@@ -135,6 +159,9 @@ def time_mix(p, cfg: ModelConfig, x, prev_tok, wkv_state):
     g = F.silu(dense(p["g"], _ddlerp(p, xn, dx, x_mix, "g")))
     w_log = p["w0"] + _lora(p["lora_w"], _ddlerp(p, xn, dx, x_mix, "w"))
     w = torch.exp(-torch.exp(w_log.float())).to(x.dtype)
+    if real is not None:          # padding leaves the wkv state as it was
+        k = torch.where(real[0], k, 0.0)
+        w = torch.where(real[0], w, 1.0)
 
     def fold(t):                              # (B,S,D) -> (B*H, S, dh)
         return t.reshape(B, S, H, dh).transpose(1, 2).reshape(B * H, S, dh)
@@ -159,21 +186,27 @@ def time_mix(p, cfg: ModelConfig, x, prev_tok, wkv_state):
     y = layer_norm(y, None, None).reshape(B, S, D)           # per-head GN
     y = y * p["gn"] + p["gn_b"]
     out = dense(p["o"], (y * g).to(x.dtype))
-    return out, xn[:, -1, :], wkv_state
+    return out, _last(xn, real), wkv_state
 
 
-def channel_mix(p, cfg: ModelConfig, x, prev_tok):
+def channel_mix(p, cfg: ModelConfig, x, prev_tok, real=None):
     xn = layer_norm(x, p["ln"], p["ln_b"])
     xp = _shift(xn, prev_tok)
     dx = xp - xn
     xk = xn + dx * p["mu_k"]
     xr = xn + dx * p["mu_r"]
     k = torch.square(F.relu(dense(p["k"], xk)))
-    return torch.sigmoid(dense(p["r"], xr)) * dense(p["v"], k), xn[:, -1, :]
+    out = torch.sigmoid(dense(p["r"], xr)) * dense(p["v"], k)
+    return out, _last(xn, real)
 
 
 # ------------------------------------------------------------------ model
 class RWKV6Model:
+    #: a prefill may run as a chain of fixed-length segments, each on the
+    #: state the last one left, the last padded (a state carrying
+    #: ``"valid"``): the decode cache is an O(1) carried state
+    prefill_segmentable = True
+
     def __init__(self, cfg: ModelConfig):
         if cfg.d_model % cfg.rwkv_head_dim:
             raise ValueError(f"d_model {cfg.d_model} is not a multiple of "
@@ -247,31 +280,38 @@ class RWKV6Model:
     def forward(self, params, tokens: torch.Tensor, state=None, *,
                 last_only: bool = False):
         """tokens: (B, S) -> (logits (B, S, V), state).  ``state`` (a
-        fresh one when None) is carried through and updated in place."""
+        fresh one when None) is carried through and updated in place; one
+        carrying ``"valid"`` pads the positions from ``valid`` on (see the
+        module), and ``last_only`` then reads the last real one."""
         cfg = self.cfg
         B, S = tokens.shape
         if state is None:
             state = self.init_state(B, device=tokens.device)
+        real = (real_positions(state["valid"], S) if "valid" in state
+                else None)
         x = F.embedding(tokens, params["embed"])
         x = layer_norm(x, params["ln_in"], params["ln_in_b"])
         for i, lp in enumerate(params["layers"]):
             y, att_tok, _ = time_mix(lp["att"], cfg, x, state["att_tok"][i],
-                                     state["wkv"][i])
+                                     state["wkv"][i], real)
             state["att_tok"][i] = att_tok
             x = x + y
-            y, ffn_tok = channel_mix(lp["ffn"], cfg, x, state["ffn_tok"][i])
+            y, ffn_tok = channel_mix(lp["ffn"], cfg, x, state["ffn_tok"][i],
+                                     real)
             state["ffn_tok"][i] = ffn_tok
             x = x + y
         x = layer_norm(x, params["ln_out"], params["ln_out_b"])
         if last_only:
-            x = x[:, -1:, :]
+            x = (x[:, -1:, :] if real is None
+                 else x.index_select(1, real[1]))
         return x @ params["head"], state
 
     # --------------------------------------------------------- decode
     def prefill(self, params, cache: dict, tokens: torch.Tensor):
         """Prompt prefill: one stateful full-sequence pass (the carried
-        state IS the decode cache).  Returns (last-position logits
-        (B, 1, V), state)."""
+        state IS the decode cache), or one segment of a chain of them
+        (a ``cache`` carrying ``"valid"``: the segment's real tokens).
+        Returns (last (real) position logits (B, 1, V), state)."""
         return self.forward(params, tokens, cache, last_only=True)
 
     def decode_step(self, params, cache: dict, tokens: torch.Tensor,

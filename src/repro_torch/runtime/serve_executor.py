@@ -21,7 +21,11 @@ a fixed order, so duplicates give the same tokens bit for bit).
     dense GQA model's group replays a CUDA graph of its decode step
     (:meth:`FusedGenerator.graphed`), kept with its cache on a side
     stream across groups of one (rows, cache capacity), so a group
-    captures only where no such graph is kept.  ``fused_decode=False``
+    captures only where no such graph is kept.  A model whose prefill
+    may run in segments (an O(1) carried state: rwkv6) prefills on the
+    card as a chain of fixed-length segments, each replayed from a CUDA
+    graph its lane keeps (:meth:`FusedGenerator.segmented`).
+    ``fused_decode=False``
     walks every position, prompt included, through ``decode_step`` with
     the argmax on the host (:func:`greedy_decode_group`, the per-token
     baseline).
@@ -37,8 +41,9 @@ a fixed order, so duplicates give the same tokens bit for bit).
     :func:`repro_torch.core.trace.current` context, and each request
     group, prefill, decode step and graph capture or kept-graph hit lands
     on the engine's flight recorder as an EV_GROUP / EV_PREFILL / EV_STEP
-    / EV_GRAPH row with its wall and thread CPU time; no span
-    synchronises with the device.
+    / EV_GRAPH row with its wall and thread CPU time (a segmented
+    prefill's captures and hits as EV_GRAPH rows "prefill-capture" /
+    "prefill-hit"); no span synchronises with the device.
 """
 
 from __future__ import annotations
@@ -132,9 +137,35 @@ CAPACITY_FLOOR = 64
 #: replayed a graph kept from an earlier group, and of those that captured
 GRAPH_HITS = "graph_hit"
 GRAPH_CAPTURES = "graph_capture"
+#: lengths of a segmented prefill's segments (:meth:`FusedGenerator.
+#: segmented`), multiples of the wkv chunk (``kernels.rwkv6_scan.CHUNK``),
+#: so the segments chunk a prompt as one pass does (:func:`prefill_segments`;
+#: chosen by the device time of each length's replay, in PERF.md)
+SEGMENT_LONG = 1024
+SEGMENT_SHORT = 256
+#: host counters (``kernels.dispatch.events``) of prefill segments that
+#: replayed a graph their lane kept, and of those that ran eagerly and
+#: then captured one
+PREFILL_HITS = "prefill_graph_hit"
+PREFILL_CAPTURES = "prefill_graph_capture"
 
 _lanes_lock = threading.Lock()
 _free_lanes: dict = {}
+
+
+def prefill_segments(S: int) -> list:
+    """(length, real tokens) of each segment of a segmented prefill of S
+    prompt tokens: :data:`SEGMENT_LONG` while more than
+    :data:`SEGMENT_SHORT` tokens remain, then :data:`SEGMENT_SHORT`; only
+    the last is padded.  A replay costs a fixed ~6 ms of device time at
+    rwkv6-1.6b's size, so a padded long segment beats several short
+    ones."""
+    out = []
+    while S > 0:
+        C = SEGMENT_LONG if S > SEGMENT_SHORT else SEGMENT_SHORT
+        out.append((C, min(C, S)))
+        S -= C
+    return out
 
 
 def cache_capacity(total: int) -> int:
@@ -170,13 +201,35 @@ class _Kept:
         self.tally.replayed()
 
 
+class _Segments:
+    """What a lane keeps for the segmented prefill of one row count: the
+    carried state its groups prefill into (zeroed at each group's start)
+    and decode from, the static count of a segment's real tokens, and
+    per segment length the static tokens and, once captured, the
+    segment's graph, the launches counted while capturing it and the
+    logits its replays write.  The state and the static inputs are
+    allocated outside any capture, so the lane's graphs may share its
+    pool; a replay's logits are read before the lane replays again."""
+
+    def __init__(self, model, rows: int, dev: torch.device):
+        self.state = model.init_cache(rows, 0, device=dev)
+        self.valid = torch.zeros((), dtype=torch.int32, device=dev)
+        self.tok = {C: torch.zeros((rows, C), dtype=torch.int32, device=dev)
+                    for C in (SEGMENT_LONG, SEGMENT_SHORT)}
+        self.graphs: dict = {}
+        self.tally: dict = {}
+        self.logits: dict = {}
+
+
 class _Lane:
     """A side stream of one device that one group at a time replays on,
-    the memory pool its captures share, and its :class:`_Kept` state per
-    (rows, capacity) for one (model, params), which it holds references
-    to, so no graph outlives what it reads.  A group of another model or
-    params drops the lane's state, and its pool with the graphs; replays
-    of one lane never overlap, as its groups hold it leased."""
+    the memory pool its captures share, and what it keeps for one
+    (model, params): its :class:`_Kept` state per (rows, capacity) and
+    its :class:`_Segments` per rows (under the key (``_Segments``,
+    rows)), which it holds references to, so no graph outlives what it
+    reads.  A group of another model or params drops the lane's state,
+    and its pool with the graphs; replays of one lane never overlap, as
+    its groups hold it leased."""
 
     def __init__(self, dev: torch.device):
         cuda = dev.type == "cuda"
@@ -195,6 +248,18 @@ class _Lane:
     def state(self, model, params, key: tuple, dev: torch.device) -> _Kept:
         """The lane's state for ``key`` = (rows, capacity), made (its
         cache allocated) if the lane has none."""
+        return self._keep(model, params, key, lambda: _Kept(model, *key, dev))
+
+    def segments(self, model, params, rows: int,
+                 dev: torch.device) -> _Segments:
+        """The lane's segmented-prefill state for ``rows``, made if the
+        lane has none."""
+        return self._keep(model, params, (_Segments, rows),
+                          lambda: _Segments(model, rows, dev))
+
+    def _keep(self, model, params, key: tuple, make: Callable):
+        """What the lane keeps under ``key`` for (model, params), from
+        ``make()`` if it keeps nothing there."""
         if not self._owned_by(model, params):
             if self.kept and self.stream is not None:
                 # nothing it frees is in use; a pool whose graphs are all
@@ -203,7 +268,7 @@ class _Lane:
                 self.pool = torch.cuda.graph_pool_handle()
             self.kept, self.owner = {}, (model, params)
         if key not in self.kept:
-            self.kept[key] = _Kept(model, *key, dev)
+            self.kept[key] = make()
         return self.kept[key]
 
 
@@ -318,10 +383,31 @@ class FusedGenerator:
     ``kernels.dispatch.events`` :data:`GRAPH_HITS` and
     :data:`GRAPH_CAPTURES`.
 
+    The prefill of 2. takes one of two forms.  On a CUDA device, a model
+    that declares its prefill segmentable (``model.prefill_segmentable``:
+    its decode cache is an O(1) carried state) prefills in segments
+    (:meth:`segmented`): the group leases a lane, which keeps per rows
+    the carried state (zeroed at the group's start; the decode steps
+    then run from it) and per segment length of :func:`prefill_segments`
+    the static tokens and the segment's graph, across groups.  Every
+    segment runs on the lane's stream on the state the last one left,
+    with its tokens and its count of real tokens (the state's
+    ``"valid"``) copied to static buffers; a segment whose length the
+    lane has graphed replays the graph (a hit), otherwise it runs
+    ``model.prefill`` eagerly (which builds what a capture must not, as
+    step 1 does above) and is then captured once through
+    ``model.prefill`` into the lane's pool (the capture runs nothing)
+    and kept.  Hits and captures are counted as ``kernels.dispatch.events``
+    :data:`PREFILL_HITS` and :data:`PREFILL_CAPTURES`, one a segment.
+    Any other prefill is one ``model.prefill`` call on the current
+    stream.
+
     Under a chunk context (:func:`repro_torch.core.trace.current`) the
     prefill, each step of 3. (a replay included) and a capture or hit are
     recorded as spans (EV_PREFILL, EV_STEP, EV_GRAPH with detail
-    "capture" or "hit").
+    "capture" or "hit"); a segmented prefill's EV_PREFILL is followed by
+    an EV_GRAPH row "prefill-capture" and one "prefill-hit" where it had
+    such segments, their size the segments.
     """
 
     def __init__(self, model):
@@ -333,6 +419,12 @@ class FusedGenerator:
         return (device.type == "cuda" and steps >= GRAPH_MIN_STEPS
                 and getattr(self.model, "decode_capturable", False))
 
+    def segmented(self, device: torch.device) -> bool:
+        """Whether a group's prefill on ``device`` runs as segments
+        replayed from CUDA graphs its lane keeps."""
+        return (device.type == "cuda"
+                and getattr(self.model, "prefill_segmentable", False))
+
     def __call__(self, params, prompts: np.ndarray,
                  max_new: int) -> np.ndarray:
         """prompts: (B, S) int32 -> generated tokens (B, max_new)."""
@@ -342,28 +434,41 @@ class FusedGenerator:
         buf = _padded(np.asarray(prompts, dtype=np.int32))
         rows = buf.shape[0]
         graphed = self.graphed(dev, max_new - 1)
-        key = (rows, cache_capacity(S + max_new))
+        segmented = not graphed and self.segmented(dev)
+        key = ((_Segments, rows) if segmented
+               else (rows, cache_capacity(S + max_new)))
         ctx = trace.current()
         mark = None
         with torch.inference_mode(), (
-                _lane(dev, model, params, key) if graphed
-                else contextlib.nullcontext()) as lane:
+                _lane(dev, model, params, key) if graphed or segmented
+                else contextlib.nullcontext()) as lane, (
+                _on(lane) if segmented else contextlib.nullcontext()):
             if graphed:
                 kept = lane.state(model, params, key, dev)
                 cache = kept.cache
+            elif segmented:
+                segs = lane.segments(model, params, rows, dev)
+                cache = segs.state
             else:
                 cache = model.init_cache(rows, S + max_new, device=dev)
             tokens = torch.from_numpy(buf).to(dev)
             if ctx is not None:
                 mark = ctx.now()
-            if hasattr(model, "prefill"):
+            if segmented:
+                logits, graphs = self._prefill_segments(params, lane, segs,
+                                                        tokens)
+            elif hasattr(model, "prefill"):
                 logits, cache = model.prefill(params, cache, tokens)
             else:
                 for pos in range(S):
                     logits, cache = model.decode_step(
                         params, cache, tokens[:, pos:pos + 1], pos)
             if ctx is not None:
-                ctx.span(trace.EV_PREFILL, mark, rows * S)
+                mark = ctx.span(trace.EV_PREFILL, mark, rows * S)
+                for detail, n in (graphs.items() if segmented else ()):
+                    if n:
+                        mark = ctx.span(trace.EV_GRAPH, mark, n,
+                                        detail=detail)
             out = torch.empty((rows, max_new), dtype=torch.int32,
                               device=dev)
             tok = torch.argmax(logits[:, -1, :], dim=-1)
@@ -381,6 +486,41 @@ class FusedGenerator:
                 if ctx is not None:       # steps follow back to back
                     mark = ctx.span(trace.EV_STEP, mark, rows)
             return out.cpu().numpy()[:B]
+
+    def _prefill_segments(self, params, lane: _Lane, segs: _Segments,
+                          tokens: torch.Tensor) -> tuple:
+        """The prompt ``tokens`` (rows, S) through the segments of
+        :func:`prefill_segments`, on the lane's stream (current) and on
+        ``segs``' state from zero: each a hit replaying the lane's graph
+        of its length, or run eagerly and then captured -> (the logits of
+        the prompt's last position, {"prefill-capture": captures,
+        "prefill-hit": hits})."""
+        model = self.model
+        for t in segs.state.values():
+            t.zero_()
+        state = dict(segs.state, valid=segs.valid)
+        done = {"prefill-capture": 0, "prefill-hit": 0}
+        a = 0
+        for C, n in prefill_segments(tokens.shape[1]):
+            tok = segs.tok[C]
+            tok[:, :n].copy_(tokens[:, a:a + n])
+            segs.valid.fill_(n)
+            a += n
+            if C in segs.graphs:
+                segs.graphs[C].replay()
+                segs.tally[C].replayed()
+                logits = segs.logits[C]
+                done["prefill-hit"] += 1
+                dispatch.count_event(PREFILL_HITS)
+                continue
+            logits, _ = model.prefill(params, state, tok)
+
+            def segment(C=C, tok=tok) -> None:
+                segs.logits[C], _ = model.prefill(params, state, tok)
+            segs.graphs[C], segs.tally[C] = _capture(segment, lane)
+            done["prefill-capture"] += 1
+            dispatch.count_event(PREFILL_CAPTURES)
+        return logits, done
 
     def _graphed_steps(self, params, lane: _Lane, kept: _Kept,
                        tok: torch.Tensor, out: torch.Tensor, S: int, ctx,

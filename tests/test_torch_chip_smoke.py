@@ -135,6 +135,92 @@ def test_exec_launch_problems_with_kept_graphs(captures, calls, ok):
     assert (got == []) is ok
 
 
+@pytest.mark.parametrize("segments,prefills,groups,wkv,ok", [
+    ((1, 2), 2, (37, 64, 1000), 6, True),    # a capture, two hits
+    ((0, 3), 0, (37, 64, 1000), 6, True),    # every segment a hit
+    ((2, 3), 4, (1100, 2040, 300), 10, True),  # groups of two segments
+    ((1, 2), 1, (37, 64, 1000), 6, False),   # a capture calls prefill twice
+    ((1, 2), 3, (37, 64, 1000), 6, False),   # a hit calls no prefill
+    ((1, 2), 2, (37, 64, 1000), 4, False),   # launches counted a group
+    ((1, 2), 2, (37, 64, 1000), 8, False),   # a capture's own launches
+    ((0, 1), 0, (37, 64, 1000), 2, False),   # segments lost
+    ((1, 3), 2, (37, 64, 1000), 8, False),   # a group prefilled twice
+    ((1, 2), 2, (37, 64, 2040), 6, False),   # a long prompt in one segment
+    ((0, 0), 0, (), 0, False)])              # nothing prefilled
+def test_exec_launch_problems_with_segments(segments, prefills, groups, wkv,
+                                            ok):
+    """Groups that prefill in segments replayed from kept graphs launch
+    the prefill site once a layer a segment, eager or replayed, call
+    ``prefill`` twice a capture and never for a hit, run the segments
+    ``prefill_segments`` plans for the prompt lengths of the groups
+    served, and call ``decode_step`` SERVE_NEW - 1 times a group (rwkv6
+    decodes eagerly): a step more, or a group's steps more, is wrong."""
+    sites, L = ("wkv6_batched", "wkv6_decode"), 2
+    steps = len(groups) * (chip_smoke.SERVE_NEW - 1)
+    launches = {"wkv6_batched": wkv, "wkv6_decode": L * steps}
+    calls = {"prefill": prefills, "decode_step": steps,
+             "groups": list(groups)}
+    got = chip_smoke.exec_launch_problems(sites, L, True, calls, launches,
+                                          segments=segments)
+    assert (got == []) is ok, got
+    for more in (1, chip_smoke.SERVE_NEW - 1):
+        odd = dict(calls, decode_step=steps + more)
+        assert chip_smoke.exec_launch_problems(
+            sites, L, True, odd,
+            dict(launches, wkv6_decode=L * (steps + more)),
+            segments=segments)
+
+
+def test_model_calls_count_the_groups_an_executor_serves(monkeypatch):
+    """``ModelCalls.watching`` adds the prompt length of each group the
+    executor hands its fused generator, and gives the executor its own
+    generator back after the block; an executor without one counts no
+    group."""
+    cfg = get_smoke("rwkv6-1.6b").replace(dtype="float32")
+    model = build_model(cfg)
+    params = model.init(0, device="cpu")
+    calls = chip_smoke.ModelCalls(model)
+    monkeypatch.setattr(chip_smoke, "EXEC_PROMPTS", (5, 5, 9, 5, 5))
+    monkeypatch.setattr(chip_smoke, "SERVE_NEW", 3)
+    for batch, want in ((True, [5, 9]), (False, [5, 5, 9, 5, 5])):
+        ex = serve_executor.RDLBServeExecutor(
+            model, params, spec=chip_smoke.exec_spec(1),
+            batch_decode=batch, fused_decode=True)
+        gen = ex._fused
+        _, _, _, n = chip_smoke.exec_serve(
+            ex, chip_smoke.exec_requests(cfg.vocab_size), calls)
+        assert sorted(n["groups"]) == sorted(want)
+        assert n["prefill"] == len(want) and ex._fused is gen
+    ex = serve_executor.RDLBServeExecutor(
+        model, params, spec=chip_smoke.exec_spec(1), fused_decode=False)
+    _, _, _, n = chip_smoke.exec_serve(
+        ex, chip_smoke.exec_requests(cfg.vocab_size), calls)
+    assert n["groups"] == [] and n["decode_step"] > 0
+
+
+@pytest.mark.parametrize("T,n", [(96, 64), (96, 70), (64, 1)])
+def test_wkv6_padding_gap_of_the_plain_version(T, n):
+    """Phase 2's padded-tail check on the plain version, which sums each
+    chunk's log decays in order, so padding past any real count leaves
+    the state bit for bit; the real steps' y too where the padding fills
+    whole chunks, and within 1e-6 where the matrix products of a chunk
+    of one real step and of a chunk of 32 may sum in another order.  A
+    tail that is not padded (w kept) is told apart."""
+    from repro_torch.kernels import rwkv6_scan as kw
+    gen = torch.Generator().manual_seed(n)
+    ins = chip_smoke.wkv_inputs(torch.device("cpu"), gen, 3, T, 16,
+                                torch.float32)
+    e_state, e_y, exact = chip_smoke.wkv6_padding_gap(kw.wkv6_batched,
+                                                      ins, n)
+    assert e_state == 0.0 and e_y <= 1e-6
+    assert exact or n % kw.CHUNK
+
+    def unpadded_w(r, k, v, w, u, s):
+        return kw.wkv6_batched(r, k, v, ins[3][:, :w.shape[1]], u, s)
+    e_state, _, exact = chip_smoke.wkv6_padding_gap(unpadded_w, ins, n)
+    assert not exact and e_state > 1e-3
+
+
 @pytest.fixture
 def counted_launches(monkeypatch):
     """The serving wrappers count a launch, then run their plain

@@ -763,6 +763,40 @@ def test_children_report_their_kernel_path():
     assert_no_orphans()
 
 
+def test_forked_children_start_from_zero_kernel_counts():
+    """A forked child inherits its parent's memory, kernel telemetry
+    included: it starts from no path records and zero launch and event
+    counts, so its reports hold its own Mandelbrot tiles alone, whatever
+    the parent launched or counted before the fork; the parent's counts
+    stay as they were."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.runtime import serve_executor
+    dispatch.count_launch("parent-launch-site")
+    dispatch.count_event(serve_executor.PREFILL_HITS)
+    dispatch.count_event(serve_executor.PREFILL_CAPTURES)
+    before = (dispatch.launches(), dispatch.events(), dispatch.status())
+    fn = functools.partial(mandelbrot.compute_tile, side=64, tile=32,
+                           max_iters=16, device="cpu")
+    spec = api.RunSpec(
+        scheduling=api.SchedulingSpec(technique="SS"),
+        cluster=api.ClusterSpec(n_workers=2), execution=process(),
+        n_tasks=4)
+    cluster.reset_runs()
+    backend = CountingBackend(task_fn=fn)
+    st = api.run(spec, api.build(spec, backend))
+    assert not st.hung and backend.commits == {t: 1 for t in range(4)}
+    (run,) = cluster.runs()
+    reports = [c["kernels"] for c in run["children"].values()
+               if c["kernels"] is not None]
+    assert reports
+    for r in reports:
+        assert r["launches"] == {} and r["events"] == {}
+        assert r["status"] == {"mandelbrot": {"path": "torch"}}
+    assert (dispatch.launches(), dispatch.events(),
+            dispatch.status()) == before
+    assert_no_orphans()
+
+
 def test_chunk_runner_psia_exactly_once():
     """ChunkRunner computes a chunk as one batch (PSIA's spin images, one
     launch a chunk on the card); here on the CPU in forked children

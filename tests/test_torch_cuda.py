@@ -25,6 +25,9 @@ PyTorch ops) against autograd through the plain version within 1e-4
 on the card against the CPU as olmo's; checkpoints of CUDA tensors bit
 for bit; process mode on the card (spawned children): tiles and tokens
 equal the in-process results exactly, every child on the kernels.
+rwkv6's prefill in segments replayed from CUDA graphs against its
+one-shot prefill, bfloat16 at full width: the last logits within
+``SEGMENT_LOGITS_TOL`` (2**-5) of the largest, the same greedy token.
 """
 
 import importlib.util
@@ -734,6 +737,51 @@ def test_process_mode_serving_on_the_card(cuda):
                            for r in reports)
 
 
+def test_process_mode_segments_rwkv6_prefills_on_the_card(cuda):
+    """rwkv6-smoke (float32) served by spawned replicas on the card: the
+    children prefill in segments replayed from CUDA graphs as threads
+    do, so tokens equal the threaded executor's, and each child that
+    prefilled reports at least one capture and wkv6_batched launched
+    once a layer a segment."""
+    from repro_torch import api, cluster
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import build_model
+    from repro_torch.runtime import RDLBServeExecutor, Request
+    from repro_torch.runtime import serve_executor as se
+    cfg = get_smoke("rwkv6-1.6b").replace(dtype="float32")
+    model = build_model(cfg)
+    params = model.init(0, device=cuda)
+
+    def reqs():
+        r = np.random.default_rng(1)
+        return [Request(i, r.integers(0, cfg.vocab_size, size=30 + 200 * i)
+                        .astype(np.int32), max_new_tokens=3)
+                for i in range(6)]
+
+    spec = (api.serve_spec(n_workers=2).override("execution.mode", "process")
+            .override("execution.stall_timeout", 60.0)
+            .override("execution.wall_timeout", 300.0))
+    cluster.reset_runs()
+    got = reqs()
+    assert not RDLBServeExecutor(model, params, spec=spec).serve(got).hung
+    want = reqs()
+    RDLBServeExecutor(model, params, spec=api.serve_spec(
+        n_workers=2, threaded=True)).serve(want)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.output, w.output)
+    (run,) = cluster.runs()
+    reports = [c["kernels"] for c in run["children"].values()
+               if c["kernels"] is not None
+               and c["kernels"]["launches"].get("wkv6_batched")]
+    assert reports
+    for r in reports:
+        captures = r["events"].get(se.PREFILL_CAPTURES, 0)
+        segments = captures + r["events"].get(se.PREFILL_HITS, 0)
+        assert captures >= 1
+        assert r["launches"]["wkv6_batched"] == cfg.n_layers * segments
+        assert r["status"]["wkv6_batched"]["path"] == "cuda"
+
+
 @pytest.mark.parametrize("dtype,B,threads", [("float32", 1, 1),
                                              ("bfloat16", 3, 1),
                                              ("bfloat16", 1, 4)])
@@ -931,3 +979,120 @@ def test_kept_graphs_dropped_for_other_params(cuda, monkeypatch):
         pools.append(lane.pool)
     assert dispatch.events(se.GRAPH_CAPTURES) == 3
     assert pools[0] != pools[1] != pools[2]
+
+
+def _rwkv6_two_layers(cuda):
+    """rwkv6-1.6b at its full width and 2 layers, in its bfloat16."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config("rwkv6-1.6b").replace(n_layers=2)
+    model = build_model(cfg)
+    return cfg, model, model.init(0, device=cuda)
+
+
+def _segment_prompts():
+    """Prompt lengths at each segment length's boundaries, and a few
+    that take several segments of both."""
+    from repro_torch.runtime import serve_executor as se
+    L, s = se.SEGMENT_LONG, se.SEGMENT_SHORT
+    return (1, 33, s - 1, s, s + 1, L - 1, L, L + 1, L + s, L + s + 1,
+            2 * L, 1100, 2040)
+
+
+#: segmented prefill against the one-shot prefill, rwkv6 bf16 logits:
+#: within this share of the largest logit's magnitude (a few bfloat16
+#: roundings: the segments' products take other shapes)
+SEGMENT_LOGITS_TOL = 2 ** -5
+
+
+def test_segmented_prefill_graphs_equal_one_shot(cuda, monkeypatch):
+    """Each prompt prefilled in segments on one lane, twice (the first
+    pass captures each segment length once, after running it eagerly;
+    the second replays every segment), against the eager one-shot
+    prefill: the last logits within SEGMENT_LOGITS_TOL of the largest,
+    the same greedy token (also through ``FusedGenerator``), and
+    wkv6_batched launched once a layer a segment, replays included, on
+    the card."""
+    from repro_torch.runtime import serve_executor as se
+    monkeypatch.setattr(se, "_free_lanes", {})
+    cfg, model, params = _rwkv6_two_layers(cuda)
+    gen = se.FusedGenerator(model)
+    assert gen.segmented(cuda)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(1, S)).astype(np.int32)
+               for S in _segment_prompts()]
+    want = []
+    with torch.inference_mode():
+        for p in prompts:
+            state = model.init_cache(1, 0, device=cuda)
+            logits, _ = model.prefill(params, state,
+                                      torch.from_numpy(p).to(cuda))
+            want.append(logits.float())
+    key = (se._Segments, 1)
+    for rnd in range(2):
+        for p, w in zip(prompts, want):
+            dispatch.reset_launches()
+            with torch.inference_mode(), \
+                    se._lane(cuda, model, params, key) as lane, \
+                    se._on(lane):
+                segs = lane.segments(model, params, 1, cuda)
+                got, done = gen._prefill_segments(
+                    params, lane, segs, torch.from_numpy(p).to(cuda))
+                got = got.float().clone()
+            n = len(se.prefill_segments(p.shape[1]))
+            assert sum(done.values()) == n
+            if rnd:
+                assert done["prefill-capture"] == 0
+            err = float((got - w).abs().max())
+            assert err <= SEGMENT_LOGITS_TOL * float(w.abs().max()), (
+                p.shape[1], err)
+            assert torch.equal(got.argmax(-1), w.argmax(-1)), p.shape[1]
+            assert dispatch.launches("wkv6_batched") == cfg.n_layers * n
+            assert dispatch.status("wkv6_batched")["path"] == "cuda"
+            toks = gen(params, p, 1)
+            assert toks[0, 0] == int(w[0, -1].argmax())
+    (lane,) = _lanes(params)
+    (segs,) = lane.kept.values()
+    assert set(segs.graphs) == {se.SEGMENT_LONG, se.SEGMENT_SHORT}
+
+
+def test_segmented_prefill_under_threads(cuda, monkeypatch):
+    """Four threads serving the same rwkv6 requests in other orders,
+    twice over, capturing and replaying at once: each thread's tokens
+    the single-thread walk's (a request's bits do not depend on its
+    lane), no lane capturing a length twice, every segment a capture or
+    a hit."""
+    import threading
+
+    from repro_torch.runtime import serve_executor as se
+    monkeypatch.setattr(se, "_free_lanes", {})
+    cfg, model, params = _rwkv6_two_layers(cuda)
+    rng = np.random.default_rng(6)
+    groups = [(rng.integers(0, cfg.vocab_size, size=(1, S))
+               .astype(np.int32), n)
+              for S, n in ((300, 1), (700, 3), (1030, 1), (130, 2))]
+    gen = se.FusedGenerator(model)
+    want = [gen(params, p, n) for p, n in groups]
+    dispatch.reset_launches()
+    got: dict = {}
+
+    def run(t):
+        order = np.random.default_rng(10 + t).permutation(len(groups))
+        for _ in range(2):
+            for i in order:
+                got[(t, int(i))] = gen(params, *groups[i])
+    pool = [threading.Thread(target=run, args=(t,)) for t in range(4)]
+    for th in pool:
+        th.start()
+    for th in pool:
+        th.join()
+    for (t, i), toks in got.items():
+        np.testing.assert_array_equal(toks, want[i])
+    kept = sum(len(k.graphs) for ln in _lanes(params)
+               for k in ln.kept.values())
+    assert dispatch.events(se.PREFILL_CAPTURES) + 2 == kept
+    segments = sum(len(se.prefill_segments(p.shape[1])) for p, _ in groups)
+    assert (dispatch.events(se.PREFILL_CAPTURES)
+            + dispatch.events(se.PREFILL_HITS) == 4 * 2 * segments)
+    assert dispatch.launches("wkv6_batched") == (cfg.n_layers * 4 * 2
+                                                 * segments)
